@@ -1,0 +1,72 @@
+"""The port stands alone: it imports nothing of JAX or srgan_tpu, ships no
+binary, and never carries on on the CPU when CUDA is asked for."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "srgan_tpu_torch")
+
+_IMPORT_ALL = r"""
+import importlib, importlib.util, pkgutil, sys
+sys.path.insert(0, ROOT)
+import srgan_tpu_torch
+for m in pkgutil.walk_packages(srgan_tpu_torch.__path__, "srgan_tpu_torch."):
+    importlib.import_module(m.name)
+spec = importlib.util.spec_from_file_location("chip_smoke",
+                                              ROOT + "/chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "srgan_tpu", "triton"))
+n = len([m for m in sys.modules if m.startswith("srgan_tpu_torch")])
+print("IMPORTED", n)
+print("BAD", bad)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_or_srgan_tpu():
+    # -I: no PYTHONPATH or site hooks that could preload anything
+    r = subprocess.run(
+        [sys.executable, "-I", "-c", f"ROOT = {ROOT!r}\n" + _IMPORT_ALL],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+    n = int(r.stdout.split("IMPORTED")[1].split()[0])
+    assert n >= 12, r.stdout
+
+
+def test_port_files_are_small_text():
+    for dirpath, _, files in os.walk(PKG):
+        if "__pycache__" in dirpath:
+            continue
+        for f in files:
+            path = os.path.join(dirpath, f)
+            assert os.path.getsize(path) <= 256 * 1024, path
+            with open(path, "rb") as fh:
+                data = fh.read()
+            assert b"\0" not in data, f"{path} is binary"
+            data.decode("utf-8")
+
+
+def test_cuda_wrapper_raises_here():
+    from srgan_tpu_torch.ops import build, norm
+    from srgan_tpu_torch.training.gan import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    x = torch.zeros(1, 2, 3, 3, device="meta")
+    t = torch.zeros(1, 2, device="meta")
+    g = torch.ones(2, device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        norm.fused_cbinorm(x, t, g, g)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    if not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            build.build()
+    assert norm.LAUNCHES == 0
