@@ -6,10 +6,11 @@
 from the root of a checkout; no install step, no argument.  Phases:
 
   1. the card, torch and CUDA versions; TF32 off for every phase;
-  2. build the CUDA kernels (plain nvcc, loaded with ctypes);
-  3. the conditional-instance-norm kernel against its plain PyTorch twin on
-     the card, at every (C, H, W) the serving path gives it, batch 8, fp32
-     and bf16, ReLU on and off;
+  2. build the CUDA kernels (plain nvcc, one process per source, all
+     started together; loaded with ctypes);
+  3. the conditional-instance-norm forward kernel against its plain
+     PyTorch twin on the card, at every (C, H, W) the model path gives it,
+     batch 8, fp32 and bf16, ReLU on and off;
   4. the serving path at the full width of preset 05_srgan_full (128 px,
      g_nch 64, g_res_num 6, e_nch 64, e_num_cls 4, fp32), random weights
      from a seeded torch.Generator saved and loaded back through the
@@ -17,17 +18,34 @@ from the root of a checkout; no install step, no argument.  Phases:
      through the npz request dispatch, with the kernel's launch count read
      around those requests, and one batch-8 forward checked against the
      same model with the plain norm forced;
-  5. CUDA-event timings of the kernel, its plain twin and F.instance_norm
-     (timed as a yardstick, never called by the port) at those shapes, and
-     translate throughput at batch 32.
+  5. CUDA-event timings of the forward kernel, its plain twin and
+     F.instance_norm (timed as a yardstick, never called by the port) at
+     those shapes, and translate throughput at batch 32;
+  6. the training slice's kernels against their plain twins on the card:
+     the norm backward at every path shape (batch 8, fp32 and bf16, ReLU on
+     and off), the soft histogram forward and backward and the fused
+     diversification loss at mu (128, 8);
+  7. the gradient repair: a G + E + D forward and backward at batch 8
+     through the kernels against the same models with the plain norm
+     forced, every parameter's gradient compared;
+  8. the train step of 05_srgan_full at full width (batch 128, k = 5, the
+     proposed loss stack, frozen encoder trunk, fp32): 1 warm and 3 timed
+     steps with every metric printed and finite and every kernel's launches
+     per step checked against the count derived from the code; one step
+     with SRGAN_TPU_FUSED_DIV=1 against the unfused one; one bf16 step;
+  9. CUDA-event timings of every kernel at the shapes of one train step,
+     beside its bound, its plain twin and, where one exists, the PyTorch
+     call that computes the same function.
 
 Without CUDA it raises before printing a result.  It starts no server and
 no thread; its only subprocesses are nvidia-smi and nvcc, both with a
-timeout.  The last line is {"ok": true, "device": {...}}.
+timeout.  Before the last line it prints the `kernels`, `training` and
+`serving` JSON lines; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -44,7 +62,13 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from srgan_tpu_torch.configs import PRESETS  # noqa: E402
-from srgan_tpu_torch.ops import build, norm  # noqa: E402
+from srgan_tpu_torch.ops import (  # noqa: E402
+    build,
+    diversification,
+    histogram,
+    norm,
+)
+from srgan_tpu_torch.ops import losses as L  # noqa: E402
 from srgan_tpu_torch.serving import (  # noqa: E402
     Translator,
     decode_npz,
@@ -54,27 +78,72 @@ from srgan_tpu_torch.serving import (  # noqa: E402
 from srgan_tpu_torch.training import gan  # noqa: E402
 
 PRESET = "05_srgan_full"
+DEV = "cuda"
 WARM = (1, 8, 32)
 TRANSLATE_N = (1, 8, 40)
 ENCODE_N = 8
 TIMING_BATCH = 32
+CHECK_BATCH = 8
+TIMED_STEPS = 3
 # fp32: both sides compute in fp32, sums in another order; bf16: about two
 # bf16 ulps at |y| <= 4, both outputs compared in fp32
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 MODEL_TOL = 1e-4
+# the training kernels against their plain twins, relative to the largest
+# entry of the plain result: fp32 sums in another order
+REL_TOL = 1e-4
+# a model's parameter gradients through the kernels against the plain norm
+# (and against the plain norm computed in float64), per tensor, as
+# ||a - b|| / ||b||, with cuDNN deterministic: each norm call agrees with
+# its plain twin to about 1e-7 on the model's own data (checked call by
+# call), but at this random init the gradients of the CBINorm biases and
+# conditional biases are sums over a plane of nearly cancelling terms, so
+# either fp32 path lands up to about 6e-3 from the float64 reference
+# (measured on the card)
+GRAD_TOL = 1e-2
+# the metrics of one step with the fused diversification kernel against one
+# without it, from the same weights, draws and batch, cuDNN deterministic,
+# relative: the fused kernel's 1e-7-level difference, carried through
+# Adam's first steps (about lr * sign(grad)) into the later losses
+STEP_TOL = 1e-3
 # H100 SXM, NVIDIA's data sheet: HBM rate and fp32 rate outside the tensor
 # cores, at the full 700 W power limit
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 # per element: sum (1 add), sum of squares (1 fma), apply (1 fma)
 FLOPS_PER_ELEM = 5
+# backward, per element: two passes of the mask and xhat (4), the two sums
+# (3), dx (4)
+BWD_FLOPS_PER_ELEM = 11
+# soft histogram, per (sample, dim, bin): difference, divide, square, exp,
+# accumulate (forward); and the backward's extra multiplies (-w z / sigma g)
+HIST_OPS = 5
+HIST_BWD_OPS = 9
 # device-side sleep (in clock cycles) ahead of a timed loop, long enough
 # for the host to queue the whole loop behind it
 SLEEP_CYCLES = 100_000_000
-KERNEL = dict(
-    name="cbinorm_fwd", route="cuda", source="srgan_tpu_torch/csrc/cbinorm.cu",
-    replaces="srgan_tpu/ops/pallas/norm.py:86 (_fused_fwd; kernel "
-             "_fwd_kernel :37)")
+KERNELS = {
+    "cbinorm_fwd": dict(
+        source="srgan_tpu_torch/csrc/cbinorm.cu",
+        replaces="srgan_tpu/ops/pallas/norm.py:86 (_fused_fwd; kernel "
+                 "_fwd_kernel :37)"),
+    "cbinorm_bwd": dict(
+        source="srgan_tpu_torch/csrc/cbinorm.cu",
+        replaces="srgan_tpu/ops/pallas/norm.py:139 (_cbinorm_bwd, jnp on "
+                 "the TPU)"),
+    "soft_histogram_fwd": dict(
+        source="srgan_tpu_torch/csrc/histogram.cu",
+        replaces="srgan_tpu/ops/pallas/histogram.py:72 (_fwd; kernel "
+                 "_fwd_kernel :35)"),
+    "soft_histogram_bwd": dict(
+        source="srgan_tpu_torch/csrc/histogram.cu",
+        replaces="srgan_tpu/ops/pallas/histogram.py:89 (_bwd_rule; kernel "
+                 "_bwd_kernel :49)"),
+    "diversification_fwd": dict(
+        source="srgan_tpu_torch/csrc/diversification.cu",
+        replaces="srgan_tpu/ops/pallas/diversification.py:106 (_fwd; "
+                 "kernel _fused_kernel :38)"),
+}
 
 
 def check(ok: bool, what):
@@ -126,26 +195,38 @@ def wall_ms(fn, iters: int = 10) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def bound_ms(B, C, H, W, itemsize: int = 4):
-    """Least time for one launch: each input read once (x, t, g, b), each
-    output written once (y, mu, rstd), over the HBM rate; or its flops over
-    the fp32 rate, whichever is larger."""
-    n = B * C * H * W
-    nbytes = 2 * n * itemsize + 4 * (3 * B * C + 2 * C)
+def bound(nbytes: float, ops: float):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the operations over the fp32 rate."""
     t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = FLOPS_PER_ELEM * n / PEAK_FP32_FLOP_S
+    t_ops = ops / PEAK_FP32_FLOP_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
 
 
+def bound_ms(B, C, H, W, itemsize: int = 4):
+    """Least time for one forward launch: each input read once (x, t, g,
+    b), each output written once (y, mu, rstd)."""
+    n = B * C * H * W
+    return bound(2 * n * itemsize + 4 * (3 * B * C + 2 * C),
+                 FLOPS_PER_ELEM * n)
+
+
+def bwd_bound_ms(B, C, H, W, itemsize: int = 4):
+    """Least time for one backward launch: x and dy read once, dx written
+    once; t, g, b, mu, rstd read and dt, dg, db written once."""
+    n = B * C * H * W
+    return bound(3 * n * itemsize + 4 * (4 * B * C + 4 * C),
+                 BWD_FLOPS_PER_ELEM * n)
+
+
 def norm_inputs(gen, B, C, H, W, dtype):
-    dev = "cuda"
     # |y| stays below 4: |x_hat| <= sqrt(3) for uniform x
-    x = ((torch.rand((B, C, H, W), generator=gen, device=dev) * 2 - 1) * 3
+    x = ((torch.rand((B, C, H, W), generator=gen, device=DEV) * 2 - 1) * 3
          + 0.5).to(dtype)
-    t = torch.tanh(torch.randn((B, C), generator=gen, device=dev))
-    g = 0.8 + 0.4 * torch.rand((C,), generator=gen, device=dev)
-    b = 0.4 * torch.rand((C,), generator=gen, device=dev) - 0.2
+    t = torch.tanh(torch.randn((B, C), generator=gen, device=DEV))
+    g = 0.8 + 0.4 * torch.rand((C,), generator=gen, device=DEV)
+    b = 0.4 * torch.rand((C,), generator=gen, device=DEV) - 0.2
     return x, t, g, b
 
 
@@ -162,8 +243,8 @@ def path_norm_shapes(G, E, cfg):
         return real(x, *a, **k)
 
     hw = cfg.model.image_size
-    x = torch.zeros((1, cfg.model.nch_in, hw, hw), device="cuda")
-    c = torch.zeros((1, cfg.model.num_con), device="cuda")
+    x = torch.zeros((1, cfg.model.nch_in, hw, hw), device=DEV)
+    c = torch.zeros((1, cfg.model.num_con), device=DEV)
     norm.fused_cbinorm = recording
     try:
         with torch.inference_mode():
@@ -176,43 +257,62 @@ def path_norm_shapes(G, E, cfg):
     return seen
 
 
+class plain_norm:
+    """Within the block every norm is ``cbinorm_plain`` under plain
+    autograd: the models as they would run without the kernels."""
+
+    def __enter__(self):
+        self.real = norm.fused_cbinorm
+        norm.fused_cbinorm = lambda *a, **k: norm.cbinorm_plain(*a, **k)
+
+    def __exit__(self, *exc):
+        norm.fused_cbinorm = self.real
+
+
 def forward_with_plain_norm(fn):
-    real = norm.fused_cbinorm
-    norm.fused_cbinorm = lambda *a, **k: norm.cbinorm_plain(*a, **k)
-    try:
-        with torch.inference_mode():
-            return fn()
-    finally:
-        norm.fused_cbinorm = real
+    with plain_norm(), torch.inference_mode():
+        return fn()
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
+def reset_counts():
+    norm.LAUNCHES = norm.BWD_LAUNCHES = 0
+    histogram.LAUNCHES = histogram.BWD_LAUNCHES = 0
+    diversification.LAUNCHES = 0
 
-    say("== phase 1: device")
-    card = card_line()
-    say(card)
-    name, power_limit = [s.strip() for s in card.split(",", 1)]
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
-        "TF32 off for convolutions and matmuls in every phase")
 
-    say("== phase 2: build the CUDA kernels")
-    build_s = build.build()
-    for n in build.SIGNATURES:
-        build.load(n)
-    say(f"build: {build_s:.2f} s")
+def read_counts():
+    return {"cbinorm_fwd": norm.LAUNCHES, "cbinorm_bwd": norm.BWD_LAUNCHES,
+            "soft_histogram_fwd": histogram.LAUNCHES,
+            "soft_histogram_bwd": histogram.BWD_LAUNCHES,
+            "diversification_fwd": diversification.LAUNCHES}
 
-    say(f"== phase 3: kernel vs plain on the card, batch 8, at the norm "
-        f"shapes of {PRESET}")
-    cfg = PRESETS[PRESET]()
+
+def rel_err(got, want) -> float:
+    scale = float(want.float().abs().max()) or 1.0
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def bf16_ulps_ok(got, want) -> bool:
+    """Every element within two bf16 ulps of the fp32-computed reference,
+    plus 1e-5 of the largest entry for results that cancel to near 0."""
+    got, want = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(1e-30))) - 7)
+    floor = 1e-5 * float(want.abs().max())
+    return bool(((got - want).abs() <= 2 * ulp + floor).all())
+
+
+# ---------------------------------------------------------------------------
+# phases 3-5: the serving slice
+# ---------------------------------------------------------------------------
+
+def serving_phases(cfg, name, power_limit):
     m = cfg.model
     gen = torch.Generator().manual_seed(0)
-    G = gan.build_generator(cfg, "cuda", gen)
-    E = gan.build_encoder(cfg, "cuda", gen)
+    G = gan.build_generator(cfg, DEV, gen)
+    E = gan.build_encoder(cfg, DEV, gen)
+    say(f"== phase 3: kernel vs plain on the card, batch {CHECK_BATCH}, at "
+        f"the norm shapes of {PRESET}")
     shapes = path_norm_shapes(G, E, cfg)
     g_per_fwd = sum(shapes["G"].values())
     e_per_fwd = sum(shapes["E"].values())
@@ -222,13 +322,13 @@ def main():
     check(e_per_fwd == 2 * m.e_num_cls, shapes)
     say(f"norm launches per forward: G {g_per_fwd} {shapes['G']}, "
         f"E {e_per_fwd} {shapes['E']}")
-    cgen = torch.Generator(device="cuda").manual_seed(1)
+    cgen = torch.Generator(device=DEV).manual_seed(1)
     all_shapes = sorted(set(shapes["G"]) | set(shapes["E"]))
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for (C, H, W) in all_shapes:
         for dtype in (torch.float32, torch.bfloat16):
             for relu in (False, True):
-                x, t, g, b = norm_inputs(cgen, 8, C, H, W, dtype)
+                x, t, g, b = norm_inputs(cgen, CHECK_BATCH, C, H, W, dtype)
                 out, mu, r = norm.fused_cbinorm(x, t, g, b, 1e-5, relu)
                 torch.cuda.synchronize()
                 p_out, p_mu, p_r = norm.cbinorm_plain(x, t, g, b, 1e-5, relu)
@@ -251,7 +351,7 @@ def main():
         torch.save(G.state_dict(), os.path.join(wdir, "generator.pth"))
         torch.save(E.state_dict(), os.path.join(wdir, "encoder.pth"))
         del G, E
-        tr = Translator(cfg, wdir, device="cuda", warm_batch_sizes=WARM)
+        tr = Translator(cfg, wdir, device=DEV, warm_batch_sizes=WARM)
     say(f"Translator up (random weights saved, loaded back, warmed at "
         f"{WARM}) in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
@@ -260,7 +360,7 @@ def main():
     images = rng.uniform(-1, 1, (n_max, hw, hw, m.nch_in)).astype(np.float32)
     labels = rng.integers(0, m.n_classes, n_max)
     chunk = max(WARM)
-    norm.LAUNCHES = 0
+    reset_counts()
     for n in TRANSLATE_N:
         before = norm.LAUNCHES
         code, body = handle_request(tr, "/translate", encode_npz(
@@ -289,13 +389,16 @@ def main():
           "encoder output not finite")
     got = norm.LAUNCHES - before
     check(got == e_per_fwd * math.ceil(ENCODE_N / chunk), got)
+    serving_launches = read_counts()
+    check(serving_launches["cbinorm_bwd"] == 0, serving_launches)
     launches = norm.LAUNCHES
     say(f"encode N={ENCODE_N}: {got} launches ({e_per_fwd} per E chunk); "
-        f"main path total {launches} launches")
+        f"serving path total {launches} launches")
 
-    x8 = torch.from_numpy(images[:8]).cuda().permute(0, 3, 1, 2).contiguous()
+    x8 = torch.from_numpy(images[:8]).to(DEV).permute(0, 3, 1, 2) \
+        .contiguous()
     c8 = torch.cat([gan.onehot(labels[:8], m.n_classes),
-                    torch.randn((8, m.ndim), generator=gen)], 1).cuda()
+                    torch.randn((8, m.ndim), generator=gen)], 1).to(DEV)
     with torch.inference_mode():
         g_k = tr.G(x8, c8)
         e_k = tr.E(x8)
@@ -317,10 +420,10 @@ def main():
     rows = []
     for (C, H, W) in all_shapes:
         uses = shapes["G"].get((C, H, W), 0) + shapes["E"].get((C, H, W), 0)
-        x = torch.randn((B, C, H, W), generator=cgen, device="cuda")
-        t = torch.zeros((B, C), device="cuda")
-        g = torch.ones((C,), device="cuda")
-        b = torch.zeros((C,), device="cuda")
+        x = torch.randn((B, C, H, W), generator=cgen, device=DEV)
+        t = torch.zeros((B, C), device=DEV)
+        g = torch.ones((C,), device=DEV)
+        b = torch.zeros((C,), device=DEV)
         k_ms, k_host_ms = cuda_ms(lambda: norm.fused_cbinorm(x, t, g, b))
         p_ms, _ = cuda_ms(lambda: norm.cbinorm_plain(x, t, g, b))
         l_ms, _ = cuda_ms(lambda: F.instance_norm(x, eps=1e-5))
@@ -335,25 +438,19 @@ def main():
     def per_request(key):
         return sum(r[key] * r["uses_per_request"] for r in rows)
 
-    k_ms = per_request("kernel_ms")
-    entry = dict(KERNEL, launches=launches,
-                 max_abs_err=max_err[torch.float32],
-                 max_abs_err_bf16=max_err[torch.bfloat16],
-                 ms=k_ms, kernel_ms=k_ms, plain_ms=per_request("plain_ms"),
-                 bound_ms=per_request("bound_ms"),
-                 bound_by="bytes" if all(r["bound_by"] == "bytes"
-                                         for r in rows) else "operations",
-                 library_ms=per_request("library_ms"),
-                 work=f"the launches of one G and one E forward at batch {B}",
-                 card=name, power_limit=power_limit)
-
     serving = dict(preset=PRESET, tf32=False, card=name,
-                   power_limit=power_limit)
+                   power_limit=power_limit, launches=launches,
+                   norm_ms_per_g_plus_e=per_request("kernel_ms"),
+                   norm_plain_ms_per_g_plus_e=per_request("plain_ms"),
+                   norm_library_ms_per_g_plus_e=per_request("library_ms"),
+                   norm_bound_ms_per_g_plus_e=per_request("bound_ms"),
+                   norm_max_abs_err_fp32=max_err[torch.float32],
+                   norm_max_abs_err_bf16=max_err[torch.bfloat16])
     for n in (1, B):
-        xg = torch.from_numpy(images[:n]).cuda().permute(0, 3, 1, 2) \
+        xg = torch.from_numpy(images[:n]).to(DEV).permute(0, 3, 1, 2) \
             .contiguous()
         cg = torch.cat([gan.onehot(labels[:n], m.n_classes),
-                        torch.randn((n, m.ndim), generator=gen)], 1).cuda()
+                        torch.randn((n, m.ndim), generator=gen)], 1).to(DEV)
         with torch.inference_mode():
             g_ms, g_host_ms = cuda_ms(lambda: tr.G(xg, cg), iters=10)
             e_ms, _ = cuda_ms(lambda: tr.E(xg), iters=10)
@@ -367,10 +464,526 @@ def main():
             g_forward_host_issue_ms=g_host_ms,
             e_forward_device_ms=e_ms, e_forward_wall_ms=e_wall)
     b_row = serving[f"batch_{B}"]
-    b_row["norm_share_of_g_plus_e_device"] = k_ms / (
-        b_row["g_forward_device_ms"] + b_row["e_forward_device_ms"])
+    b_row["norm_share_of_g_plus_e_device"] = serving[
+        "norm_ms_per_g_plus_e"] / (b_row["g_forward_device_ms"]
+                                   + b_row["e_forward_device_ms"])
     serving["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    say(json.dumps({"kernels": [entry]}))
+    del tr
+    return shapes, all_shapes, max_err, serving
+
+
+# ---------------------------------------------------------------------------
+# phases 6-9: the training slice
+# ---------------------------------------------------------------------------
+
+def check_training_kernels(all_shapes, cgen):
+    """Phase 6.  Returns {kernel: (max abs error fp32, bf16 or None)}."""
+    errs = {"cbinorm_bwd": [0.0, 0.0]}
+    for (C, H, W) in all_shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for relu in (False, True):
+                x, t, g, b = norm_inputs(cgen, CHECK_BATCH, C, H, W, dtype)
+                dy = torch.randn(x.shape, generator=cgen, device=DEV) \
+                    .to(dtype)
+                y, mu, r = norm.cbinorm_fwd(x, t, g, b, 1e-5, relu)
+                got = norm.cbinorm_bwd(x, t, g, b, mu, r, dy, relu)
+                torch.cuda.synchronize()
+                # the mask is the forward kernel's y > 0, which the backward
+                # kernel recomputes bit for bit; the plain twin's own
+                # (xhat + t) g + b can round the other way where y is ~1e-7
+                dy_m = dy * (y > 0) if relu else dy
+                want = norm.cbinorm_bwd_plain(x, t, g, b, mu, r, dy_m, False)
+                names = ("dx", "dt", "dg", "db")
+                rels = [rel_err(a, w) for a, w in zip(got, want)]
+                dx_abs = float((got[0].float() - want[0].float()).abs().max())
+                if dtype == torch.float32:
+                    ok = all(e <= REL_TOL for e in rels)
+                    errs["cbinorm_bwd"][0] = max(errs["cbinorm_bwd"][0],
+                                                 dx_abs)
+                else:
+                    ok = bf16_ulps_ok(got[0], want[0]) and all(
+                        e <= REL_TOL for e in rels[1:])
+                    errs["cbinorm_bwd"][1] = max(errs["cbinorm_bwd"][1],
+                                                 dx_abs)
+                say(f"cbinorm_bwd C={C} H={H} W={W} {str(dtype)[6:]} "
+                    f"relu={relu}: max|dx-plain| {dx_abs:.3e}, rel "
+                    + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, rels)))
+                check(ok, f"backward kernel disagrees with plain at "
+                          f"{(C, H, W)} {dtype} relu={relu}")
+
+    mu = (torch.randn((128, 8), generator=cgen, device=DEV) * 1.5 + 0.1)
+    gh = torch.randn((8, 50), generator=cgen, device=DEV)
+    h = histogram.soft_histogram_fwd(mu)
+    dmu = histogram.soft_histogram_bwd(mu, gh)
+    torch.cuda.synchronize()
+    h_p = histogram.soft_histogram_cols_plain(mu)
+    dmu_p = histogram.soft_histogram_cols_bwd_plain(mu, gh)
+    e_h, e_d = rel_err(h, h_p), rel_err(dmu, dmu_p)
+    say(f"soft histogram mu (128, 8): forward rel {e_h:.2e}, backward rel "
+        f"{e_d:.2e} (tol {REL_TOL:g})")
+    check(e_h <= REL_TOL and e_d <= REL_TOL, "histogram kernels disagree")
+    errs["soft_histogram_fwd"] = [float((h - h_p).abs().max()), None]
+    errs["soft_histogram_bwd"] = [float((dmu - dmu_p).abs().max()), None]
+
+    target = L.histogram_target(torch.Generator(device=DEV).manual_seed(2))
+    out = diversification.diversification_fwd(mu, target, 128)
+    torch.cuda.synchronize()
+    out_p = diversification.diversification_plain(mu, target, 128)
+    e_v = float(((out - out_p).abs() / out_p.abs()).max())
+    say(f"fused diversification mu (128, 8), target (50,): "
+        f"{out.tolist()} vs plain {out_p.tolist()}, max rel {e_v:.2e} "
+        f"(tol {REL_TOL:g})")
+    check(e_v <= REL_TOL, "diversification kernel disagrees")
+    errs["diversification_fwd"] = [float((out - out_p).abs().max()), None]
+    return errs
+
+
+class deterministic_cudnn:
+    """cuDNN's deterministic algorithms within the block, so that two runs
+    of the same model differ only where the code under test differs."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.saved
+
+
+def plain64(x, t, g, b, eps=1e-5, relu=False):
+    """The plain norm computed in float64, its output back in x's dtype."""
+    out, mu, r = norm.cbinorm_plain(x.double(), t.double(), g.double(),
+                                    b.double(), eps, relu)
+    return out.to(x.dtype), mu.float(), r.float()
+
+
+def check_gradient_repair(cfg, g_per, e_per):
+    """Phase 7: G + E + D forward and backward through the kernels against
+    the same models with the plain norm forced.  ``g_per`` and ``e_per``
+    are the norms of one G and one E forward; each runs forward and
+    backward once here (E's input, the fake, needs a gradient)."""
+    m = cfg.model
+    gen = torch.Generator().manual_seed(3)
+    G = gan.build_generator(cfg, DEV, gen)
+    E = gan.build_encoder(cfg, DEV, gen)
+    D = gan.build_discriminator(cfg, DEV, gen)
+    rng = np.random.default_rng(3)
+    hw, B = m.image_size, CHECK_BATCH
+    x = torch.from_numpy(rng.uniform(-1, 1, (B, m.nch_in, hw, hw))
+                         .astype(np.float32)).to(DEV)
+    labels = rng.integers(0, m.n_classes, B)
+    onehot = gan.onehot(labels, m.n_classes).to(DEV)
+    c = torch.cat([onehot, torch.from_numpy(rng.standard_normal(
+        (B, m.ndim)).astype(np.float32)).to(DEV)], 1)
+    w = torch.from_numpy(rng.standard_normal((B, m.nch_in, hw, hw))
+                         .astype(np.float32)).to(DEV)
+    names = [f"G.{n}" for n, _ in G.named_parameters()] \
+        + [f"E.{n}" for n, _ in E.named_parameters()] \
+        + [f"D.{n}" for n, _ in D.named_parameters()]
+    params = list(G.parameters()) + list(E.parameters()) \
+        + list(D.parameters())
+
+    def grads():
+        fake = G(x, c)
+        adv, cls = D(fake)
+        mu, logvar, cls_e = E(fake)
+        loss = (L.lsgan_loss(adv, 1.0)
+                + L.domain_classification_loss(cls, onehot)
+                + (fake * w).mean() + mu.square().mean() + logvar.mean()
+                + cls_e.square().mean())
+        return torch.autograd.grad(loss, params)
+
+    with deterministic_cudnn():
+        reset_counts()
+        got = grads()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        with plain_norm():
+            want = grads()
+        real = norm.fused_cbinorm
+        norm.fused_cbinorm = plain64
+        try:
+            want64 = grads()
+        finally:
+            norm.fused_cbinorm = real
+
+        # every backward launch of the model, against the plain twin on the
+        # same inputs (the mask taken from the forward kernel's output)
+        calls = []
+        real_bwd = norm.cbinorm_bwd
+
+        def checking(x, t, g, b, mu, rstd, dy, relu=False):
+            out = real_bwd(x, t, g, b, mu, rstd, dy, relu)
+            dy = dy.to(x.dtype).contiguous()
+            if relu:
+                dy = dy * (norm.cbinorm_fwd(x, t, g, b, 1e-5, True)[0] > 0)
+            ref = norm.cbinorm_bwd_plain(x, t, g, b, mu, rstd, dy, False)
+            calls.append(max(rel_err(o, r) for o, r in zip(out, ref)))
+            return out
+
+        norm.cbinorm_bwd = checking
+        try:
+            grads()
+        finally:
+            norm.cbinorm_bwd = real_bwd
+
+    def l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    worst = {"plain": (0.0, ""), "float64": (0.0, ""),
+             "plain_vs_float64": (0.0, "")}
+    for n, a, b, r in zip(names, got, want, want64):
+        check(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0,
+              f"{n}: gradient through the kernels is zero or not finite")
+        for key, e in (("plain", l2(a, b)), ("float64", l2(a, r)),
+                       ("plain_vs_float64", l2(b, r))):
+            worst[key] = max(worst[key], (e, n))
+    say(f"G + E + D gradients at batch {B}: every one of {len(params)} "
+        f"parameters got a non-zero gradient through the kernels; "
+        f"launches {counts}")
+    say(f"each of the {len(calls)} backward launches vs its plain twin on "
+        f"the model's own data: worst {max(calls):.2e} relative (tol "
+        f"{REL_TOL:g})")
+    say("per-tensor ||a - b|| / ||b||, worst: kernels vs plain "
+        f"{worst['plain'][0]:.2e} ({worst['plain'][1]}), kernels vs float64 "
+        f"norm {worst['float64'][0]:.2e} ({worst['float64'][1]}), plain vs "
+        f"float64 norm {worst['plain_vs_float64'][0]:.2e} "
+        f"({worst['plain_vs_float64'][1]}); tol {GRAD_TOL:g}")
+    check(counts["cbinorm_fwd"] == g_per + e_per
+          and counts["cbinorm_bwd"] == g_per + e_per, counts)
+    check(len(calls) == g_per + e_per and max(calls) <= REL_TOL,
+          "a backward launch disagrees with its plain twin")
+    check(worst["plain"][0] <= GRAD_TOL and worst["float64"][0] <= GRAD_TOL,
+          "gradients through the kernels disagree")
+    return worst
+
+
+def expected_counts(cfg, g_per, e_per, fused):
+    """Launches of each kernel in one train step, from the step's code
+    (srgan_tpu_torch/training/gan.py::GANTrainer.step), with idt > 0 and
+    idt_reg * idt > 0 as in the preset:
+
+    forward norms, G: k - 1 D-loop fakes (no grad), the k-th fake, the
+    phase-1 pair (one 2B call), the phase-2 pair (one 2B call) = k + 2
+    calls; E: phase 1 on the images, phase 2 on the images (no grad) and
+    on the 2B pair = 3 calls.
+    backward norms: G's k-th fake (its graph feeds D(fake) and the phase-1
+    pair: one backward), the phase-1 pair and the phase-2 pair = 3 G
+    backwards; E: the phase-2 pair's forward, back to its input = 1; E's
+    phase-1 forward on the images reaches no norm backward, since the
+    trunk is frozen (neither its input nor its parameters need a
+    gradient).
+    soft histogram: once forward, once backward (phase 1's errE), unless
+    the fused kernel takes the stack; fused kernel: 0, or 1 when fused.
+    """
+    k = cfg.train.unrolled_k
+    return {"cbinorm_fwd": (k + 2) * g_per + 3 * e_per,
+            "cbinorm_bwd": 3 * g_per + e_per,
+            "soft_histogram_fwd": 0 if fused else 1,
+            "soft_histogram_bwd": 0 if fused else 1,
+            "diversification_fwd": 1 if fused else 0}
+
+
+def make_batches(cfg, n, seed):
+    m, B = cfg.model, cfg.train.batch_size
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        src = rng.integers(0, m.n_classes, B)
+        tgt = (src + rng.integers(1, m.n_classes, B)) % m.n_classes
+        img = rng.uniform(-1, 1, (B, m.image_size, m.image_size, m.nch_in)) \
+            .astype(np.float32)
+        out.append(dict(image=torch.from_numpy(img).to(DEV),
+                        source_label=torch.from_numpy(src),
+                        target_label=torch.from_numpy(tgt)))
+    return out
+
+
+def timed_step(trainer, state, batch):
+    """(metrics as floats, device ms, host ms, launches) of one step."""
+    torch.cuda.synchronize()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    metrics = trainer.step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts()
+    metrics = {k: float(v) for k, v in metrics.items()}
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"a metric is not finite: {metrics}")
+    return metrics, start.elapsed_time(end), host_ms, counts
+
+
+def fresh(cfg):
+    trainer = gan.GANTrainer(cfg, DEV)
+    state = trainer.init_state(torch.Generator().manual_seed(0),
+                               freeze_pretrained=True)
+    return trainer, state
+
+
+def training_phase(cfg, g_per, e_per, name, power_limit):
+    """Phase 8.  Returns the `training` record and the launches per step."""
+    B, k = cfg.train.batch_size, cfg.train.unrolled_k
+    say(f"== phase 8: train step of {PRESET} at full width: batch {B}, "
+        f"k = {k}, fp32 (TF32 off), frozen encoder trunk, random weights "
+        "from a seeded torch.Generator, synthetic batches from numpy")
+    check(os.environ.get("SRGAN_TPU_FUSED_DIV") != "1",
+          "SRGAN_TPU_FUSED_DIV=1 is set in the environment; the smoke run "
+          "sets it itself for its one fused step")
+    batches = make_batches(cfg, 1 + TIMED_STEPS, seed=5)
+    want = expected_counts(cfg, g_per, e_per, fused=False)
+    t0 = time.perf_counter()
+    trainer, state = fresh(cfg)
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i, batch in enumerate(batches):
+        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch)
+        say(f"step {i} ({'warm' if i == 0 else 'timed'}): device "
+            f"{dev_ms:.1f} ms, host {host_ms:.1f} ms, launches {counts}, "
+            + json.dumps(metrics))
+        check(counts == want, f"launches {counts}, derived {want}")
+        steps.append(dict(metrics=metrics, device_ms=dev_ms,
+                          host_ms=host_ms))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    say("== phase 8b: one step with SRGAN_TPU_FUSED_DIV=1 against one "
+        "without, from the same weights, draws and batch, cuDNN "
+        "deterministic")
+    with deterministic_cudnn():
+        trainer, state = fresh(cfg)
+        unfused0 = timed_step(trainer, state, batches[0])[0]
+        del trainer, state
+        trainer, state = fresh(cfg)
+        os.environ["SRGAN_TPU_FUSED_DIV"] = "1"
+        try:
+            fused, f_ms, f_host_ms, f_counts = timed_step(trainer, state,
+                                                          batches[0])
+        finally:
+            del os.environ["SRGAN_TPU_FUSED_DIV"]
+    f_want = expected_counts(cfg, g_per, e_per, fused=True)
+    worst = max(abs(fused[key] - v) / abs(v) for key, v in unfused0.items())
+    say(f"unfused: {json.dumps(unfused0)}")
+    say(f"fused step: device {f_ms:.1f} ms, launches {f_counts}, "
+        + json.dumps(fused) + f"; worst relative difference "
+        f"{worst:.2e} (tol {STEP_TOL:g})")
+    check(set(fused) == set(unfused0), (sorted(fused), sorted(unfused0)))
+    check(f_counts == f_want, f"launches {f_counts}, derived {f_want}")
+    check(worst <= STEP_TOL, "the fused step disagrees with the unfused one")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    say("== phase 8c: bf16 compute (torch.autocast), 1 warm and 1 timed "
+        "step")
+    bcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype="bfloat16"))
+    trainer, state = fresh(bcfg)
+    torch.cuda.reset_peak_memory_stats()
+    bf16 = []
+    for batch in batches[:2]:
+        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch)
+        say(f"bf16 step: device {dev_ms:.1f} ms, host {host_ms:.1f} ms, "
+            f"launches {counts}, " + json.dumps(metrics))
+        check(counts == want, f"launches {counts}, derived {want}")
+        bf16.append(dict(metrics=metrics, device_ms=dev_ms,
+                         host_ms=host_ms))
+    bf16_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    timed = steps[1:]
+    record = dict(
+        preset=PRESET, batch=B, unrolled_k=k, tf32=False,
+        freeze_pretrained=True, card=name, power_limit=power_limit,
+        init_s=init_s, warm_step_device_ms=steps[0]["device_ms"],
+        step_device_ms=[s["device_ms"] for s in timed],
+        step_host_ms=[s["host_ms"] for s in timed],
+        step_device_ms_mean=sum(s["device_ms"] for s in timed) / len(timed),
+        img_s=1e3 * B * len(timed) / sum(s["device_ms"] for s in timed),
+        peak_mem_gib=peak, metrics_last_step=timed[-1]["metrics"],
+        launches_per_step=want,
+        fused_step=dict(device_ms=f_ms, launches=f_counts,
+                        worst_rel_diff_to_unfused=worst),
+        bf16=dict(warm_step_device_ms=bf16[0]["device_ms"],
+                  step_device_ms=bf16[1]["device_ms"],
+                  step_host_ms=bf16[1]["host_ms"],
+                  img_s=1e3 * B / bf16[1]["device_ms"], peak_mem_gib=bf16_peak,
+                  metrics=bf16[1]["metrics"]))
+    return record, want, f_counts
+
+
+def norm_uses_per_step(cfg, shapes):
+    """(C, H, W, batch) -> (forward launches, backward launches) in one
+    step, split as ``expected_counts`` derives them."""
+    B, k = cfg.train.batch_size, cfg.train.unrolled_k
+    uses = {}
+
+    def add(net, batch, n_fwd, n_bwd):
+        for shape, per in shapes[net].items():
+            f, b = uses.get(shape + (batch,), (0, 0))
+            uses[shape + (batch,)] = (f + per * n_fwd, b + per * n_bwd)
+
+    add("G", B, k, 1)
+    add("G", 2 * B, 2, 2)
+    add("E", B, 2, 0)
+    add("E", 2 * B, 1, 1)
+    return uses
+
+
+def time_training_kernels(cfg, shapes, cgen, name, power_limit):
+    """Phase 9: device time of every kernel at the shapes of one step."""
+    say("== phase 9: kernel timing at the shapes of one train step (CUDA "
+        "events around calls queued behind a device sleep; the norms with "
+        "t=0, g=1, b=0, no ReLU, so that F.instance_norm and its autograd "
+        "backward compute the same functions)")
+    uses = norm_uses_per_step(cfg, shapes)
+    tot = {kn: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                    by=set()) for kn in ("cbinorm_fwd", "cbinorm_bwd")}
+    for (C, H, W, B), (n_fwd, n_bwd) in sorted(uses.items()):
+        x = torch.randn((B, C, H, W), generator=cgen, device=DEV)
+        dy = torch.randn((B, C, H, W), generator=cgen, device=DEV)
+        t = torch.zeros((B, C), device=DEV)
+        g = torch.ones((C,), device=DEV)
+        b = torch.zeros((C,), device=DEV)
+        _, mu, r = norm.cbinorm_fwd(x, t, g, b)
+        row = dict(C=C, H=H, W=W, B=B, fwd_per_step=n_fwd,
+                   bwd_per_step=n_bwd, card=name, power_limit=power_limit)
+        row["fwd_ms"] = cuda_ms(lambda: norm.cbinorm_fwd(x, t, g, b))[0]
+        row["fwd_plain_ms"] = cuda_ms(
+            lambda: norm.cbinorm_plain(x, t, g, b))[0]
+        row["fwd_library_ms"] = cuda_ms(
+            lambda: F.instance_norm(x, eps=1e-5))[0]
+        row["fwd_bound_ms"], fby = bound_ms(B, C, H, W)
+        if n_bwd:
+            row["bwd_ms"] = cuda_ms(
+                lambda: norm.cbinorm_bwd(x, t, g, b, mu, r, dy))[0]
+            row["bwd_plain_ms"] = cuda_ms(
+                lambda: norm.cbinorm_bwd_plain(x, t, g, b, mu, r, dy))[0]
+            xr = x.detach().requires_grad_(True)
+            y = F.instance_norm(xr, eps=1e-5)
+            row["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                y, xr, dy, retain_graph=True))[0]
+            row["bwd_bound_ms"], bby = bwd_bound_ms(B, C, H, W)
+            del xr, y
+        say(json.dumps({"train_kernel_shape": row}))
+        for kn, n, pre in (("cbinorm_fwd", n_fwd, "fwd"),
+                           ("cbinorm_bwd", n_bwd, "bwd")):
+            if n:
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                    tot[kn][key] += n * row[f"{pre}_{key}"]
+                tot[kn]["by"].add(fby if pre == "fwd" else bby)
+        del x, dy, t, g, b, mu, r
+
+    mu = (torch.randn((cfg.train.batch_size, cfg.model.ndim),
+                      generator=cgen, device=DEV) * 1.5 + 0.1)
+    Bm, Dm = mu.shape
+    gh = torch.randn((Dm, 50), generator=cgen, device=DEV)
+    target = L.histogram_target(torch.Generator(device=DEV).manual_seed(2))
+    n_hist = Bm * Dm * 50
+    small = {
+        "soft_histogram_fwd": (
+            lambda: histogram.soft_histogram_fwd(mu),
+            lambda: histogram.soft_histogram_cols_plain(mu),
+            bound(4 * (Bm * Dm + Dm * 50), HIST_OPS * n_hist)),
+        "soft_histogram_bwd": (
+            lambda: histogram.soft_histogram_bwd(mu, gh),
+            lambda: histogram.soft_histogram_cols_bwd_plain(mu, gh),
+            bound(4 * (2 * Bm * Dm + Dm * 50), HIST_BWD_OPS * n_hist)),
+        "diversification_fwd": (
+            lambda: diversification.diversification_fwd(mu, target, Bm),
+            lambda: diversification.diversification_plain(mu, target, Bm),
+            # moments and covariance (2 B D^2), the histograms, the KL
+            bound(4 * (Bm * Dm + 50 + 3),
+                  2 * Bm * Dm * Dm + HIST_OPS * n_hist + 4 * Dm * 50)),
+    }
+    for kn, (fn, plain_fn, (bd, by)) in small.items():
+        k_ms, host_ms = cuda_ms(fn, iters=50)
+        tot[kn] = dict(ms=k_ms, plain_ms=cuda_ms(plain_fn, iters=50)[0],
+                       bound_ms=bd, library_ms=None, by={by},
+                       host_ms=host_ms)
+    return tot
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
+
+    say("== phase 1: device")
+    card = card_line()
+    say(card)
+    name, power_limit = [s.strip() for s in card.split(",", 1)]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
+        "TF32 off for convolutions and matmuls in every phase")
+
+    say("== phase 2: build the CUDA kernels")
+    build_s = build.build()
+    for n in build.SIGNATURES:
+        build.load(n)
+    say(f"build of {sorted(build.SIGNATURES)}: {build_s:.2f} s")
+
+    cfg = PRESETS[PRESET]()
+    shapes, all_shapes, fwd_err, serving = serving_phases(cfg, name,
+                                                          power_limit)
+    g_per = sum(shapes["G"].values())
+    e_per = sum(shapes["E"].values())
+
+    say("== phase 6: the training kernels vs plain on the card")
+    cgen = torch.Generator(device=DEV).manual_seed(4)
+    errs = check_training_kernels(all_shapes, cgen)
+    errs["cbinorm_fwd"] = [fwd_err[torch.float32], fwd_err[torch.bfloat16]]
+
+    say(f"== phase 7: gradients of G + E + D at batch {CHECK_BATCH}, "
+        "kernels vs plain norm")
+    check_gradient_repair(cfg, g_per, e_per)
+
+    training, launches, fused_launches = training_phase(
+        cfg, g_per, e_per, name, power_limit)
+    tot = time_training_kernels(cfg, shapes, cgen, name, power_limit)
+
+    entries = []
+    for kn, meta in KERNELS.items():
+        t = tot[kn]
+        n = fused_launches[kn] if kn == "diversification_fwd" \
+            else launches[kn]
+        check(n > 0, f"{kn} was not launched on its path")
+        entry = dict(
+            name=kn, route="cuda", source=meta["source"],
+            replaces=meta["replaces"], launches=n,
+            max_abs_err=errs[kn][0], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"],
+            bound_by="bytes" if t["by"] == {"bytes"} else "operations",
+            library_ms=t["library_ms"], card=name, power_limit=power_limit,
+            work="the launches of one train step of "
+                 f"{PRESET} at batch {cfg.train.batch_size}")
+        if errs[kn][1] is not None:
+            entry["max_abs_err_bf16"] = errs[kn][1]
+        if kn == "cbinorm_fwd":
+            entry["launches_serving"] = serving["launches"]
+        if kn == "cbinorm_bwd":
+            entry["library"] = ("torch.autograd.grad through "
+                                "F.instance_norm")
+        if kn == "diversification_fwd":
+            entry["path"] = "the SRGAN_TPU_FUSED_DIV=1 step"
+        if t["library_ms"] is None:
+            entry["library"] = "none: no one PyTorch call computes it"
+        entries.append(entry)
+    norm_ms = tot["cbinorm_fwd"]["ms"] + tot["cbinorm_bwd"]["ms"]
+    training["norm_ms_per_step"] = norm_ms
+    training["norm_share_of_step"] = norm_ms / training["step_device_ms_mean"]
+    say(json.dumps({"kernels": entries}))
+    say(json.dumps({"training": training}))
     say(json.dumps({"serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

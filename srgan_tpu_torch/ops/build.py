@@ -31,6 +31,18 @@ SIGNATURES = {
     "cbinorm": {
         "srgan_cbinorm_fwd": ((_P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _F, _I, _I, _P), _I),
+        "srgan_cbinorm_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _I, _I, _I, _I, _I, _P), _I),
+    },
+    "histogram": {
+        "srgan_soft_histogram_fwd": ((_P, _P, _I, _I, _I, _F, _F, _F, _F,
+                                      _P), _I),
+        "srgan_soft_histogram_bwd": ((_P, _P, _P, _I, _I, _I, _F, _F, _F,
+                                      _F, _P), _I),
+    },
+    "diversification": {
+        "srgan_diversification_fwd": ((_P, _P, _P, _I, _I, _I, _F, _F, _F,
+                                       _F, _F, _I, _P), _I),
     },
 }
 

@@ -1,23 +1,31 @@
-"""Conditional instance norm: the CUDA kernel's wrapper and its plain twin.
+"""Conditional instance norm: the CUDA kernels' wrappers and their plain
+twins.
 
-Counterpart of ``srgan_tpu/ops/pallas/norm.py``.  On a CUDA tensor
-``fused_cbinorm`` launches the kernel of ``csrc/cbinorm.cu`` or raises; on a
-CPU tensor it computes ``cbinorm_plain``, the same function in plain PyTorch,
-which is also the kernel's oracle on the card.  Layout is NCHW.
-
-Forward only: serving needs no gradient.  ``mu`` and ``rstd`` are returned
-for the backward kernel of the training slice.
+Counterpart of ``srgan_tpu/ops/pallas/norm.py``.  ``fused_cbinorm`` is a
+``torch.autograd.Function``: on a CUDA tensor its forward launches
+``srgan_cbinorm_fwd`` and its backward ``srgan_cbinorm_bwd`` (both in
+``csrc/cbinorm.cu``), or raises; on a CPU tensor they compute
+``cbinorm_plain`` and ``cbinorm_bwd_plain``, the same functions in plain
+PyTorch, which are also the kernels' oracles on the card.  Layout is NCHW.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-# kernel launches since the last reset; the smoke run sets it to 0 before it
-# drives the serving path and reads it afterwards
+# kernel launches since the last reset, forward and backward; the smoke run
+# sets them to 0 before it drives a path and reads them afterwards
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _compute_dtype(dtype):
+    """fp32 for fp32 and bf16; float64 stays float64 (gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def cbinorm_plain(x, t, g, b, eps: float = 1e-5, relu: bool = False):
@@ -30,7 +38,7 @@ def cbinorm_plain(x, t, g, b, eps: float = 1e-5, relu: bool = False):
     x's dtype before the conditional bias is added.  Returns
     (out in x's dtype, mu (B, C) fp32, rstd (B, C) fp32).
     """
-    x32 = x.float()
+    x32 = x.to(_compute_dtype(x.dtype))
     mean = x32.mean(dim=(2, 3), keepdim=True)
     m2 = (x32 * x32).mean(dim=(2, 3), keepdim=True)
     var = torch.clamp_min(m2 - mean * mean, 0.0)
@@ -41,6 +49,35 @@ def cbinorm_plain(x, t, g, b, eps: float = 1e-5, relu: bool = False):
     if relu:
         out = torch.clamp_min(out, 0.0)
     return out.to(x.dtype), mean[:, :, 0, 0], rstd[:, :, 0, 0]
+
+
+def cbinorm_bwd_plain(x, t, g, b, mu, rstd, dy, relu: bool = False):
+    """Gradient of ``cbinorm_plain``'s output in plain PyTorch, the math of
+    ``srgan_tpu/ops/pallas/norm.py:139-156``: the ReLU mask recomputed from
+    the output, then
+
+        db = sum dy',  dg = sum dy' (xhat + t),  dt = g sum_hw dy',
+        dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)),
+
+    with dxhat = dy' g.  Returns (dx in x's dtype, dt (B, C), dg (C,),
+    db (C,)), the last three fp32."""
+    ct = _compute_dtype(x.dtype)
+    dy = dy.to(ct)
+    r = rstd[:, :, None, None]
+    xhat = (x.to(ct) - mu[:, :, None, None]) * r
+    if relu:
+        out = (xhat + t[:, :, None, None]) * g[None, :, None, None] \
+            + b[None, :, None, None]
+        dy = dy * (out > 0)
+    s1 = dy.sum(dim=(2, 3))
+    db = s1.sum(0)
+    dg = (dy * (xhat + t[:, :, None, None])).sum(dim=(0, 2, 3))
+    dt = s1 * g[None, :]
+    dxhat = dy * g[None, :, None, None]
+    m1 = dxhat.mean(dim=(2, 3), keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=(2, 3), keepdim=True)
+    dx = r * (dxhat - m1 - xhat * m2)
+    return dx.to(x.dtype), dt, dg, db
 
 
 def _check(x, t, g, b):
@@ -68,11 +105,16 @@ def _check(x, t, g, b):
         raise ValueError("fused_cbinorm: x is empty")
     if B * C >= 2 ** 31 or x.shape[2] * x.shape[3] >= 2 ** 31:
         raise ValueError("fused_cbinorm: B*C and H*W must fit in int32")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_cbinorm runs on cuda (kernel) or cpu "
+                         f"(plain), not on {x.device}")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _launch(x, t, g, b, eps: float, relu: bool):
-    import ctypes
-
     from srgan_tpu_torch.ops.build import load
 
     global LAUNCHES
@@ -82,15 +124,88 @@ def _launch(x, t, g, b, eps: float, relu: bool):
     rstd = torch.empty_like(mu)
     fn = load("cbinorm").srgan_cbinorm_fwd
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), t.data_ptr(), g.data_ptr(), b.data_ptr(),
                  out.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
                  B * C, C, H * W, ctypes.c_float(eps), int(relu),
-                 _DTYPE_CODE[x.dtype], stream)
+                 _DTYPE_CODE[x.dtype], _stream(x))
     if err != 0:
         raise RuntimeError(f"cbinorm kernel launch failed: cudaError_t {err}")
     LAUNCHES += 1
     return out, mu, rstd
+
+
+def _launch_bwd(x, t, g, b, mu, rstd, dy, relu: bool):
+    """One call of ``srgan_cbinorm_bwd``: a block per plane writes dx, dt
+    and the per-plane sums; a second grid of the same call reduces the sums
+    over the batch into dg and db, in a fixed order (no atomics)."""
+    from srgan_tpu_torch.ops.build import load
+
+    global BWD_LAUNCHES
+    B, C, H, W = x.shape
+    dx = torch.empty_like(x)
+    dt = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
+    dg = torch.empty((C,), dtype=torch.float32, device=x.device)
+    db = torch.empty_like(dg)
+    fn = load("cbinorm").srgan_cbinorm_bwd
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dy.data_ptr(), t.data_ptr(), g.data_ptr(),
+                 b.data_ptr(), mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+                 dt.data_ptr(), sums.data_ptr(), dg.data_ptr(), db.data_ptr(),
+                 B, C, H * W, int(relu), _DTYPE_CODE[x.dtype], _stream(x))
+    if err != 0:
+        raise RuntimeError(f"cbinorm backward kernel launch failed: "
+                           f"cudaError_t {err}")
+    BWD_LAUNCHES += 1
+    return dx, dt, dg, db
+
+
+def cbinorm_fwd(x, t, g, b, eps: float = 1e-5, relu: bool = False):
+    """The forward alone, no graph: the kernel on a CUDA x, ``cbinorm_plain``
+    on a CPU x.  Returns (out, mu, rstd)."""
+    _check(x, t, g, b)
+    if x.device.type == "cuda":
+        return _launch(x, t, g, b, eps, relu)
+    return cbinorm_plain(x, t, g, b, eps, relu)
+
+
+def cbinorm_bwd(x, t, g, b, mu, rstd, dy, relu: bool = False):
+    """The backward alone: the kernel on a CUDA x, ``cbinorm_bwd_plain`` on
+    a CPU x.  dy must have x's shape; it is cast to x's dtype.  Returns
+    (dx, dt, dg, db)."""
+    _check(x, t, g, b)
+    dy = dy.to(x.dtype).contiguous()
+    if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
+        raise ValueError(f"cbinorm_bwd: dy {tuple(dy.shape)} on {dy.device} "
+                         f"does not match x {tuple(x.shape)} on {x.device}")
+    for name, v in (("mu", mu), ("rstd", rstd)):
+        if (tuple(v.shape) != tuple(x.shape[:2]) or v.dtype != torch.float32
+                or v.device != x.device or not v.is_contiguous()):
+            raise ValueError(f"cbinorm_bwd: {name} must be contiguous "
+                             f"float32 {tuple(x.shape[:2])} on {x.device}")
+    if x.device.type == "cuda":
+        return _launch_bwd(x, t, g, b, mu, rstd, dy, relu)
+    return cbinorm_bwd_plain(x, t, g, b, mu, rstd, dy, relu)
+
+
+class CBINormFunction(torch.autograd.Function):
+    """``cbinorm_fwd`` with ``cbinorm_bwd`` as its gradient.  Saves x, t, g,
+    b, mu and rstd; the ReLU mask is recomputed from them.  mu and rstd are
+    outputs without a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, t, g, b, eps, relu):
+        out, mu, rstd = cbinorm_fwd(x, t, g, b, eps, relu)
+        ctx.save_for_backward(x, t, g, b, mu, rstd)
+        ctx.relu = relu
+        ctx.mark_non_differentiable(mu, rstd)
+        return out, mu, rstd
+
+    @staticmethod
+    def backward(ctx, dy, _dmu, _drstd):
+        x, t, g, b, mu, rstd = ctx.saved_tensors
+        dx, dt, dg, db = cbinorm_bwd(x, t, g, b, mu, rstd, dy, ctx.relu)
+        return dx, dt, dg, db, None, None
 
 
 def fused_cbinorm(x, t, g, b, eps: float = 1e-5, relu: bool = False):
@@ -98,16 +213,11 @@ def fused_cbinorm(x, t, g, b, eps: float = 1e-5, relu: bool = False):
 
     x: (B, C, H, W) float32 or bfloat16, contiguous; t: (B, C) conditional
     bias (already tanh'ed), g, b: (C,) affine, all float32 on x's device.
-    A CUDA x launches the kernel; a CPU x takes ``cbinorm_plain``; any
-    other device raises.  Returns (out in x's dtype, mu, rstd).
+    A CUDA x launches the kernels (forward, and backward when a gradient
+    flows back); a CPU x takes the plain twins; any other device raises.
+    Returns (out in x's dtype, mu, rstd).
     """
-    _check(x, t, g, b)
-    if x.device.type == "cuda":
-        return _launch(x, t, g, b, eps, relu)
-    if x.device.type == "cpu":
-        return cbinorm_plain(x, t, g, b, eps, relu)
-    raise ValueError(f"fused_cbinorm runs on cuda (kernel) or cpu (plain), "
-                     f"not on {x.device}")
+    return CBINormFunction.apply(x, t, g, b, eps, relu)
 
 
 def fused_instance_norm(x, eps: float = 1e-5, relu: bool = False):

@@ -1,11 +1,11 @@
 """The weight carry-over from the JAX package's parameter trees to the port.
 
 Counterpart of the torch export in ``srgan_tpu/utils/checkpoint.py:339-489``:
-the same key layout (the reference's ``SingleGenerator`` and ``Encoder``),
-computed from parameter trees given as nested dicts of numpy arrays, so the
-port needs no JAX to read them.  ``load_state_dict_file`` reads the
-``generator.pth`` / ``encoder.pth`` that ``scripts/export_torch_checkpoint.py``
-writes.
+the same key layout (the reference's ``SingleGenerator``, ``Encoder`` and
+``SingleDiscriminator_solo_multi``), computed from parameter trees given as
+nested dicts of numpy arrays, so the port needs no JAX to read them.
+``load_state_dict_file`` reads the ``generator.pth`` / ``encoder.pth`` that
+``scripts/export_torch_checkpoint.py`` writes.
 """
 
 from __future__ import annotations
@@ -96,6 +96,25 @@ def encoder_state_dict_from_jax(params: Mapping, num_cls: int = 4
     for head in ("fcmean", "fcvar", "fcclass"):
         ex.put(f"{head}.weight", (head, "kernel"), _inv_lin_w)
         ex.put(f"{head}.bias", (head, "bias"), _vec)
+    return ex.sd
+
+
+def solo_discriminator_state_dict_from_jax(params: Mapping, num_cls: int = 4
+                                           ) -> Dict[str, torch.Tensor]:
+    """JAX ``SingleDiscriminatorSoloMulti`` params -> the port's solo
+    discriminator state dict (the trunks' convs sit at the even indices of
+    ``down_convs``, LeakyReLUs between them)."""
+    ex = _Exporter(params)
+    for trunk in ("discriminator1", "discriminator2"):
+        for i in range(num_cls):
+            ex.put(f"{trunk}.down_convs.{2 * i}.weight",
+                   (trunk, f"conv_{i}", "kernel"), _inv_conv_w)
+    for name in ("last_layer1", "last_layer2"):
+        ex.put(f"{name}.weight", (name, "kernel"), _inv_conv_w)
+        ex.put(f"{name}.bias", (name, "bias"), _vec)
+    for name in ("classification_layer1", "classification_layer2"):
+        ex.put(f"{name}.0.weight", (name, "kernel"), _inv_conv_w)
+        ex.put(f"{name}.0.bias", (name, "bias"), _vec)
     return ex.sd
 
 

@@ -37,7 +37,7 @@ def test_port_and_chip_smoke_import_no_jax_or_srgan_tpu():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 12, r.stdout
+    assert n >= 17, r.stdout
 
 
 def test_port_files_are_small_text():
@@ -54,7 +54,7 @@ def test_port_files_are_small_text():
 
 
 def test_cuda_wrapper_raises_here():
-    from srgan_tpu_torch.ops import build, norm
+    from srgan_tpu_torch.ops import build, diversification, histogram, norm
     from srgan_tpu_torch.training.gan import resolve_device
 
     if torch.cuda.is_available():
@@ -66,7 +66,35 @@ def test_cuda_wrapper_raises_here():
         norm.fused_cbinorm(x, t, g, g)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    mu = torch.zeros(4, 2, device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        histogram.soft_histogram_cols(mu)
+    with pytest.raises(ValueError, match="cuda"):
+        diversification.fused_diversification(
+            mu, torch.zeros(50, device="meta"), 4)
     if not os.path.exists("/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc"):
             build.build()
-    assert norm.LAUNCHES == 0
+    assert norm.LAUNCHES == norm.BWD_LAUNCHES == 0
+    assert histogram.LAUNCHES == histogram.BWD_LAUNCHES == 0
+    assert diversification.LAUNCHES == 0
+
+
+def test_norm_output_carries_the_gradient():
+    """The norm's output keeps a grad_fn whenever an input requires grad,
+    so a gradient reaches every layer below a norm."""
+    from srgan_tpu_torch.ops import norm
+
+    x = torch.randn(2, 3, 4, 4, requires_grad=True)
+    t = torch.zeros(2, 3)
+    g = torch.ones(3)
+    out = norm.fused_cbinorm(x, t, g, torch.zeros(3))[0]
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    assert x.grad is not None and bool(x.grad.abs().sum() > 0)
+    y = norm.fused_instance_norm(x.detach().requires_grad_(True), relu=True)
+    assert y.grad_fn is not None
+    with pytest.raises(ValueError, match="cuda"):
+        norm.fused_cbinorm(x.detach().to("meta").requires_grad_(True),
+                           t.to("meta"), g.to("meta"),
+                           torch.zeros(3, device="meta"))

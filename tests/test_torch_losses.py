@@ -1,0 +1,206 @@
+"""The port's losses (``srgan_tpu_torch/ops/losses.py``) and the plain twins
+of its histogram and fused-diversification kernels on the CPU against the
+JAX package: ``srgan_tpu/ops/losses.py`` and the Pallas kernels run in
+interpret mode.  Inputs from numpy with a seed.  fp32; tolerance 1e-5
+relative (plus 1e-6 absolute for entries near 0): sums in another order
+over at most a few hundred terms."""
+
+import dataclasses
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from srgan_tpu.configs import LossWeights as JLossWeights
+from srgan_tpu.ops import losses as JL
+from srgan_tpu.ops.pallas.diversification import _reference_jnp
+from srgan_tpu.ops.pallas.diversification import (
+    fused_diversification as jax_fused_diversification,
+)
+from srgan_tpu.ops.pallas.histogram import (
+    soft_histogram_cols as jax_soft_histogram_cols,
+)
+from srgan_tpu_torch.configs import LossWeights
+from srgan_tpu_torch.ops import diversification, histogram
+from srgan_tpu_torch.ops import losses as L
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+N, D = 32, 8
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(11)
+    mu = (rng.standard_normal((N, D)) * 1.3 + 0.2).astype(np.float32)
+    target = np.asarray(JL.histogram_target(jax.random.PRNGKey(0)))
+    return types.SimpleNamespace(mu=mu, target=target, rng=rng)
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.array(a)).requires_grad_(grad)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got.detach()), np.asarray(want),
+                               **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the soft histogram (Pallas rows 2 and 3)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("oracle", ["pallas", "jnp"])
+def test_soft_histogram_cols_forward_and_gradient(data, oracle):
+    gh = data.rng.standard_normal((D, 50)).astype(np.float32)
+    if oracle == "pallas":
+        fn = jax_soft_histogram_cols
+    else:
+        def fn(m):
+            return jax.vmap(JL.gaussian_histogram, in_axes=1)(m)
+    mu = jnp.asarray(data.mu)
+    want = fn(mu)
+    want_grad = jax.grad(lambda m: jnp.sum(fn(m) * gh))(mu)
+
+    mu_t = _t(data.mu, grad=True)
+    got = histogram.soft_histogram_cols(mu_t)
+    assert got.grad_fn is not None
+    (got * _t(gh)).sum().backward()
+    _close(got, want)
+    _close(mu_t.grad, want_grad)
+
+
+def test_soft_histogram_plain_twins_agree(data):
+    """The closed-form backward twin equals autograd of the forward twin."""
+    gh = _t(data.rng.standard_normal((D, 50)).astype(np.float32))
+    mu_t = _t(data.mu, grad=True)
+    (histogram.soft_histogram_cols_plain(mu_t) * gh).sum().backward()
+    _close(histogram.soft_histogram_cols_bwd_plain(_t(data.mu), gh),
+           mu_t.grad.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the fused diversification loss (Pallas row 4)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("oracle", ["pallas", "jnp"])
+def test_fused_diversification_values_and_gradient(data, oracle):
+    w = np.asarray([10.0, 100.0, 100.0], np.float32)
+    target = jnp.asarray(data.target)
+    if oracle == "pallas":
+        def fn(m):
+            return jax_fused_diversification(m, target, 32)
+    else:
+        def fn(m):
+            return _reference_jnp(m, target, 32, 50, -10.0, 10.0, 0.2)
+    mu = jnp.asarray(data.mu)
+    want = fn(mu)
+    want_grad = jax.grad(lambda m: jnp.sum(fn(m) * w))(mu)
+
+    mu_t = _t(data.mu, grad=True)
+    got = diversification.fused_diversification(mu_t, _t(data.target), 32)
+    (got * _t(w)).sum().backward()
+    _close(got, want)
+    _close(mu_t.grad, want_grad)
+
+
+# ---------------------------------------------------------------------------
+# every loss of ops/losses.py
+# ---------------------------------------------------------------------------
+
+def _two_scales(rng, shapes=((4, 3, 3, 1), (4, 1, 1, 1))):
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def test_elementwise_losses(data):
+    rng = data.rng
+    a, b = (rng.standard_normal((4, 3, 8, 8)).astype(np.float32)
+            for _ in range(2))
+    _close(L.l1_loss(_t(a), _t(b)), JL.l1_loss(a, b))
+    outs = _two_scales(rng)
+    for target in (0.0, 1.0):
+        _close(L.lsgan_loss([_t(o) for o in outs], target),
+               JL.lsgan_loss([jnp.asarray(o) for o in outs], target))
+    for mask in ([1, 0, 1, 1], [0, 0, 0, 0]):
+        m = np.asarray(mask, np.float32)
+        _close(L.masked_lsgan_loss([_t(o) for o in outs], 1.0, _t(m)),
+               JL.masked_lsgan_loss([jnp.asarray(o) for o in outs], 1.0,
+                                    jnp.asarray(m)))
+    probs = [np.asarray(jax.nn.softmax(rng.standard_normal((4, 4)), -1),
+                        np.float32) for _ in range(2)]
+    onehot = np.eye(4, dtype=np.float32)[[0, 3, 1, 1]]
+    _close(L.domain_classification_loss([_t(p) for p in probs], _t(onehot)),
+           JL.domain_classification_loss([jnp.asarray(p) for p in probs],
+                                         jnp.asarray(onehot)))
+
+
+def test_distribution_losses(data):
+    mu = data.mu
+    logvar = (data.rng.standard_normal((N, D)) * 0.3).astype(np.float32)
+    _close(L.kl_loss(_t(mu), _t(logvar)), JL.kl_loss(mu, logvar))
+    # n_batch is the configured batch, not the one given (quirk #12)
+    _close(L.batch_kl_loss(_t(mu), 128), JL.batch_kl_loss(mu, 128))
+    _close(L.corrcoef(_t(mu.T)), JL.corrcoef(jnp.asarray(mu.T)))
+    _close(L.corrcoef_loss(_t(mu.T)), JL.corrcoef_loss(jnp.asarray(mu.T)))
+    _close(L.gaussian_histogram(_t(mu[:, 0])),
+           JL.gaussian_histogram(jnp.asarray(mu[:, 0])))
+    for use_kernel in (None, False):
+        _close(L.histogram_imitation_loss(_t(mu), _t(data.target),
+                                          use_kernel=use_kernel),
+               JL.histogram_imitation_loss(jnp.asarray(mu),
+                                           jnp.asarray(data.target),
+                                           use_pallas=False))
+
+
+def test_histogram_target_is_normalized():
+    t = L.histogram_target(torch.Generator().manual_seed(1))
+    assert t.shape == (50,) and t.dtype == torch.float32
+    assert float(t.sum()) == pytest.approx(1.0, abs=1e-3)
+    assert bool((t > 0).all())
+
+
+GATES = {
+    # tests/test_losses.py:115: corr and hist fire only under batch_KL > 0
+    "batch_kl_off": dict(KL=0.0, batch_KL=0.0, corr_enc=100.0, hist=100.0),
+    "proposed": dict(KL=0.0, batch_KL=10.0, corr_enc=100.0, hist=100.0),
+    "proposed_fused": dict(KL=0.0, batch_KL=10.0, corr_enc=100.0,
+                           hist=100.0),
+    "no_corr": dict(KL=0.0, batch_KL=10.0, corr_enc=0.0, hist=100.0),
+    "no_hist_fused": dict(KL=0.0, batch_KL=10.0, corr_enc=100.0, hist=0.0),
+    "kl_only": dict(KL=0.1, batch_KL=0.0, corr_enc=0.0, hist=0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GATES))
+def test_diversification_loss_gating(data, case):
+    w = GATES[case]
+    use_kernel = True if case.endswith("_fused") else None
+    mu = data.mu[:16]
+    logvar = (data.rng.standard_normal((16, D)) * 0.3).astype(np.float32)
+    want, want_m = JL.diversification_loss(
+        jnp.asarray(mu), jnp.asarray(logvar), weights=JLossWeights(**w),
+        n_batch=16, hist_target=jnp.asarray(data.target), use_pallas=False)
+    mu_t = _t(mu, grad=True)
+    got, got_m = L.diversification_loss(
+        mu_t, _t(logvar), weights=LossWeights(**w), n_batch=16,
+        hist_target=_t(data.target), use_kernel=use_kernel)
+    assert set(got_m) == set(want_m)
+    if case == "batch_kl_off":
+        assert float(got) == 0.0 and got_m == {}
+        return
+    _close(got, want)
+    for k in want_m:
+        _close(got_m[k], want_m[k])
+    want_grad = jax.grad(lambda m: JL.diversification_loss(
+        m, jnp.asarray(logvar), weights=JLossWeights(**w), n_batch=16,
+        hist_target=jnp.asarray(data.target), use_pallas=False)[0])(
+            jnp.asarray(mu))
+    got.backward()
+    _close(mu_t.grad, want_grad)
+
+
+def test_loss_weights_fields_match_jax():
+    assert ([f.name for f in dataclasses.fields(LossWeights)]
+            == [f.name for f in dataclasses.fields(JLossWeights)])
