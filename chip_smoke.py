@@ -23,8 +23,12 @@ from the root of a checkout; no install step, no argument.  Phases:
      those shapes, and translate throughput at batch 32;
   6. the training slice's kernels against their plain twins on the card:
      the norm backward at every path shape (batch 8, fp32 and bf16, ReLU on
-     and off), the soft histogram forward and backward and the fused
-     diversification loss at mu (128, 8);
+     and off), at every tier and edge of its plan (batch 1, planes that do
+     not fill a block, plane lengths that are not a multiple of 4, clusters
+     of 2, 4 and 8 blocks, a plane above the register tiers, an unaligned
+     view), without affine, twice for the same bits, and its dg and db
+     against the plain backward in float64; the soft histogram forward and
+     backward and the fused diversification loss at mu (128, 8);
   7. the gradient repair: a G + E + D forward and backward at batch 8
      through the kernels against the same models with the plain norm
      forced, every parameter's gradient compared;
@@ -32,10 +36,11 @@ from the root of a checkout; no install step, no argument.  Phases:
      proposed loss stack, frozen encoder trunk, fp32): 1 warm and 3 timed
      steps with every metric printed and finite and every kernel's launches
      per step checked against the count derived from the code; one step
-     with SRGAN_TPU_FUSED_DIV=1 against the unfused one; one bf16 step;
+     under torch.profiler; one step with SRGAN_TPU_FUSED_DIV=1 against the
+     unfused one; a bf16 step, and one more under torch.profiler;
   9. CUDA-event timings of every kernel at the shapes of one train step,
-     beside its bound, its plain twin and, where one exists, the PyTorch
-     call that computes the same function.
+     the norms in fp32 and bf16, beside its bound, its plain twin and,
+     where one exists, the PyTorch call that computes the same function.
 
 Without CUDA it raises before printing a result.  It starts no server and
 no thread; its only subprocesses are nvidia-smi and nvcc, both with a
@@ -46,9 +51,11 @@ timeout.  Before the last line it prints the `kernels`, `training` and
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -119,6 +126,9 @@ BWD_FLOPS_PER_ELEM = 11
 # accumulate (forward); and the backward's extra multiplies (-w z / sigma g)
 HIST_OPS = 5
 HIST_BWD_OPS = 9
+# timed calls take turns over copies of their inputs until the copies hold
+# this many bytes of x and dy: three times the H100's 50 MB L2
+L2_FLUSH_BYTES = 150e6
 # device-side sleep (in clock cycles) ahead of a timed loop, long enough
 # for the host to queue the whole loop behind it
 SLEEP_CYCLES = 100_000_000
@@ -476,40 +486,133 @@ def serving_phases(cfg, name, power_limit):
 # phases 6-9: the training slice
 # ---------------------------------------------------------------------------
 
-def check_training_kernels(all_shapes, cgen):
-    """Phase 6.  Returns {kernel: (max abs error fp32, bf16 or None)}."""
-    errs = {"cbinorm_bwd": [0.0, 0.0]}
-    for (C, H, W) in all_shapes:
+def check_bwd_call(x, t, g, b, dy, relu, what):
+    """One backward launch on (x, t, g, b, dy) against its plain twin, the
+    mask taken from the forward kernel's output: fp32 every output within
+    REL_TOL of the largest entry; bf16 dx within two bf16 ulps.  Returns
+    (max |dx - plain|, the kernel's outputs, the forward's mu and rstd)."""
+    y, mu, r = norm.cbinorm_fwd(x, t, g, b, 1e-5, relu)
+    got = norm.cbinorm_bwd(x, t, g, b, mu, r, dy, relu)
+    torch.cuda.synchronize()
+    # the mask is the forward kernel's y > 0, which the backward kernel
+    # recomputes bit for bit; the plain twin's own (xhat + t) g + b can
+    # round the other way where y is ~1e-7
+    dy_m = dy * (y > 0) if relu else dy
+    want = norm.cbinorm_bwd_plain(x, t, g, b, mu, r, dy_m, False)
+    rels = [rel_err(a, w) for a, w in zip(got, want)]
+    dx_abs = float((got[0].float() - want[0].float()).abs().max())
+    if x.dtype == torch.float32:
+        ok = all(e <= REL_TOL for e in rels)
+    else:
+        ok = bf16_ulps_ok(got[0], want[0]) and all(
+            e <= REL_TOL for e in rels[1:])
+    B, C, H, W = x.shape
+    aligned = all(v.data_ptr() % 16 == 0 for v in (x, dy))
+    plan = norm.bwd_plan(H * W, x.element_size(), aligned)
+    say(f"cbinorm_bwd {what} B={B} C={C} H={H} W={W} {str(x.dtype)[6:]} "
+        f"relu={relu} plan {plan}: max|dx-plain| {dx_abs:.3e}, rel "
+        + ", ".join(f"{n} {e:.2e}" for n, e in zip(("dx", "dt", "dg", "db"),
+                                                    rels)))
+    check(ok, f"backward kernel disagrees with plain at {what} "
+              f"{(B, C, H, W)} {x.dtype} relu={relu}")
+    return dx_abs, got, mu, r
+
+
+# the tiers and edges of the backward kernel beyond the path shapes at
+# batch 8: (what, B, C, H, W)
+BWD_EDGES = (
+    ("batch 1, cluster of 4", 1, 64, 128, 128),
+    ("batch 1, warp tier", 1, 256, 32, 32),
+    ("batch 1, 2 a lane", 1, 512, 7, 7),
+    ("15 planes, 8 a block", 3, 5, 15, 15),
+    ("15 planes, 2 a lane", 3, 5, 8, 8),
+    ("cluster of 2, scalar", 2, 3, 65, 65),
+    ("cluster of 4, scalar", 2, 3, 127, 127),
+    ("cluster of 8, scalar", 2, 4, 181, 181),
+    ("above the register tiers: two passes", 2, 64, 256, 256),
+)
+# dg and db against the plain backward computed in float64, relative to the
+# largest entry: fp32 sums of up to 8 x 16384 terms of either sign, in a
+# fixed order; the plain fp32 twin is measured beside it
+DGDB_TOL = 1e-5
+
+
+def check_norm_bwd(all_shapes, cgen):
+    """Phase 6, the norm backward: every path shape at batch 8 (fp32 and
+    bf16, ReLU on and off), every tier and edge, an unaligned input, the
+    no-affine call, run-to-run bits, and dg/db against float64.  Returns
+    (max |dx - plain| fp32, bf16, dg/db distance to float64)."""
+    errs = [0.0, 0.0]
+    cases = [("path", CHECK_BATCH) + s for s in all_shapes] + list(BWD_EDGES)
+    for what, B, C, H, W in cases:
         for dtype in (torch.float32, torch.bfloat16):
             for relu in (False, True):
-                x, t, g, b = norm_inputs(cgen, CHECK_BATCH, C, H, W, dtype)
+                x, t, g, b = norm_inputs(cgen, B, C, H, W, dtype)
                 dy = torch.randn(x.shape, generator=cgen, device=DEV) \
                     .to(dtype)
-                y, mu, r = norm.cbinorm_fwd(x, t, g, b, 1e-5, relu)
-                got = norm.cbinorm_bwd(x, t, g, b, mu, r, dy, relu)
-                torch.cuda.synchronize()
-                # the mask is the forward kernel's y > 0, which the backward
-                # kernel recomputes bit for bit; the plain twin's own
-                # (xhat + t) g + b can round the other way where y is ~1e-7
-                dy_m = dy * (y > 0) if relu else dy
-                want = norm.cbinorm_bwd_plain(x, t, g, b, mu, r, dy_m, False)
-                names = ("dx", "dt", "dg", "db")
-                rels = [rel_err(a, w) for a, w in zip(got, want)]
-                dx_abs = float((got[0].float() - want[0].float()).abs().max())
-                if dtype == torch.float32:
-                    ok = all(e <= REL_TOL for e in rels)
-                    errs["cbinorm_bwd"][0] = max(errs["cbinorm_bwd"][0],
-                                                 dx_abs)
-                else:
-                    ok = bf16_ulps_ok(got[0], want[0]) and all(
-                        e <= REL_TOL for e in rels[1:])
-                    errs["cbinorm_bwd"][1] = max(errs["cbinorm_bwd"][1],
-                                                 dx_abs)
-                say(f"cbinorm_bwd C={C} H={H} W={W} {str(dtype)[6:]} "
-                    f"relu={relu}: max|dx-plain| {dx_abs:.3e}, rel "
-                    + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, rels)))
-                check(ok, f"backward kernel disagrees with plain at "
-                          f"{(C, H, W)} {dtype} relu={relu}")
+                e = check_bwd_call(x, t, g, b, dy, relu, what)[0]
+                k = 0 if dtype == torch.float32 else 1
+                errs[k] = max(errs[k], e)
+
+    # a view one element into its buffer: no 16-byte access is possible
+    B, C, H, W = CHECK_BATCH, 256, 32, 32
+    buf = torch.randn(B * C * H * W + 1, generator=cgen, device=DEV)
+    x = buf[1:].view(B, C, H, W)
+    _, t, g, b = norm_inputs(cgen, B, C, H, W, torch.float32)
+    dy = torch.randn(x.shape, generator=cgen, device=DEV)
+    check(norm.bwd_plan(H * W, 4, aligned=False)[2] == 1, "unaligned plan")
+    check_bwd_call(x, t, g, b, dy, True, "unaligned view")
+
+    # without affine the call writes dx alone, the same bits as with it;
+    # and the same call twice gives the same bits
+    for (C, H, W) in ((64, 128, 128), (256, 32, 32), (512, 7, 7)):
+        x, t, g, b = norm_inputs(cgen, CHECK_BATCH, C, H, W, torch.float32)
+        dy = torch.randn(x.shape, generator=cgen, device=DEV)
+        _, mu, r = norm.cbinorm_fwd(x, t, g, b, 1e-5, True)
+        full = norm.cbinorm_bwd(x, t, g, b, mu, r, dy, True)
+        again = norm.cbinorm_bwd(x, t, g, b, mu, r, dy, True)
+        alone = norm.cbinorm_bwd(x, t, g, b, mu, r, dy, True, affine=False)
+        torch.cuda.synchronize()
+        check(all(v is None for v in alone[1:]),
+              "the no-affine call returned more than dx")
+        check(torch.equal(alone[0], full[0]),
+              f"no-affine dx differs from affine dx at {(C, H, W)}")
+        check(all(torch.equal(a, b_) for a, b_ in zip(full, again)),
+              f"two calls gave different bits at {(C, H, W)}")
+    say("cbinorm_bwd without affine: dx alone, equal bit for bit to the "
+        "affine call's; two calls equal bit for bit")
+
+    # dg and db alone against float64 (the mask from the forward kernel)
+    worst = {"kernel": 0.0, "plain_fp32": 0.0}
+    for (C, H, W) in all_shapes:
+        for relu in (False, True):
+            x, t, g, b = norm_inputs(cgen, CHECK_BATCH, C, H, W,
+                                     torch.float32)
+            dy = torch.randn(x.shape, generator=cgen, device=DEV)
+            y, mu, r = norm.cbinorm_fwd(x, t, g, b, 1e-5, relu)
+            got = norm.cbinorm_bwd(x, t, g, b, mu, r, dy, relu)
+            dy_m = dy * (y > 0) if relu else dy
+            plain = norm.cbinorm_bwd_plain(x, t, g, b, mu, r, dy_m, False)
+            want = norm.cbinorm_bwd_plain(*(v.double() for v in (
+                x, t, g, b, mu, r, dy_m)), False)
+            for i in (2, 3):
+                worst["kernel"] = max(worst["kernel"],
+                                      rel_err(got[i], want[i]))
+                worst["plain_fp32"] = max(worst["plain_fp32"],
+                                          rel_err(plain[i], want[i]))
+    say(f"cbinorm_bwd dg, db vs the plain backward in float64 at every path "
+        f"shape, batch {CHECK_BATCH}, ReLU on and off, relative to the "
+        f"largest entry: kernel {worst['kernel']:.2e}, plain fp32 twin "
+        f"{worst['plain_fp32']:.2e} (tol {DGDB_TOL:g})")
+    check(worst["kernel"] <= DGDB_TOL, "dg/db far from float64")
+    return errs, worst
+
+
+def check_training_kernels(all_shapes, cgen):
+    """Phase 6.  Returns ({kernel: (max abs error fp32, bf16 or None)},
+    the dg/db distances to float64)."""
+    bwd_errs, dgdb = check_norm_bwd(all_shapes, cgen)
+    errs = {"cbinorm_bwd": bwd_errs}
 
     mu = (torch.randn((128, 8), generator=cgen, device=DEV) * 1.5 + 0.1)
     gh = torch.randn((8, 50), generator=cgen, device=DEV)
@@ -535,7 +638,7 @@ def check_training_kernels(all_shapes, cgen):
         f"(tol {REL_TOL:g})")
     check(e_v <= REL_TOL, "diversification kernel disagrees")
     errs["diversification_fwd"] = [float((out - out_p).abs().max()), None]
-    return errs
+    return errs, dgdb
 
 
 class deterministic_cudnn:
@@ -612,16 +715,18 @@ def check_gradient_repair(cfg, g_per, e_per):
 
         # every backward launch of the model, against the plain twin on the
         # same inputs (the mask taken from the forward kernel's output)
-        calls = []
+        calls, no_affine = [], []
         real_bwd = norm.cbinorm_bwd
 
-        def checking(x, t, g, b, mu, rstd, dy, relu=False):
-            out = real_bwd(x, t, g, b, mu, rstd, dy, relu)
+        def checking(x, t, g, b, mu, rstd, dy, relu=False, affine=True):
+            out = real_bwd(x, t, g, b, mu, rstd, dy, relu, affine)
             dy = dy.to(x.dtype).contiguous()
             if relu:
                 dy = dy * (norm.cbinorm_fwd(x, t, g, b, 1e-5, True)[0] > 0)
             ref = norm.cbinorm_bwd_plain(x, t, g, b, mu, rstd, dy, False)
-            calls.append(max(rel_err(o, r) for o, r in zip(out, ref)))
+            calls.append(max(rel_err(o, r) for o, r in zip(out, ref)
+                             if o is not None))
+            no_affine.append(not affine)
             return out
 
         norm.cbinorm_bwd = checking
@@ -656,6 +761,11 @@ def check_gradient_repair(cfg, g_per, e_per):
           and counts["cbinorm_bwd"] == g_per + e_per, counts)
     check(len(calls) == g_per + e_per and max(calls) <= REL_TOL,
           "a backward launch disagrees with its plain twin")
+    # the plain instance norms (G's up path, E's trunk) ask for dx alone
+    n_in = cfg.model.g_num_cls + e_per
+    say(f"{sum(no_affine)} of the {len(calls)} backward launches took the "
+        f"no-affine call (the instance norms: {n_in})")
+    check(sum(no_affine) == n_in, "the instance norms did not skip dt/dg/db")
     check(worst["plain"][0] <= GRAD_TOL and worst["float64"][0] <= GRAD_TOL,
           "gradients through the kernels disagree")
     return worst
@@ -728,6 +838,71 @@ def fresh(cfg):
     return trainer, state
 
 
+# kernel names of the layout transposes cuDNN runs around a convolution,
+# and of cuDNN's convolutions and cuBLAS's matrix products
+TRANSPOSE_RE = re.compile(r"nchwToNhwc|nhwcToNchw", re.I)
+CONV_RE = re.compile(r"conv|cudnn|xmma|gemm|implicit|dgrad|wgrad|fprop|"
+                     r"cutlass", re.I)
+
+
+def profile_step(trainer, state, batch):
+    """One step under torch.profiler: device ms by kernel group (the norm
+    kernels, the histogram and diversification kernels, cuDNN's layout
+    transposes, convolutions and matrix products, the rest) and the 12
+    kernels that take longest.  ``recorded`` is False where the trace holds
+    no device time.  The kernels' sum can exceed the step's wall time where
+    cuDNN runs kernels side by side."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups = dict.fromkeys(("norm", "histogram_diversification",
+                            "layout_transpose", "conv_matmul", "rest"), 0.0)
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.device_time_total / 1e3
+        kernels.append((ms, e.count, e.key))
+        if "cbinorm" in e.key:
+            groups["norm"] += ms
+        elif "histogram" in e.key or "diversification" in e.key:
+            groups["histogram_diversification"] += ms
+        elif TRANSPOSE_RE.search(e.key):
+            groups["layout_transpose"] += ms
+        elif CONV_RE.search(e.key):
+            groups["conv_matmul"] += ms
+        else:
+            groups["rest"] += ms
+    busy = sum(groups.values())
+    kernels.sort(reverse=True)
+    return dict(recorded=busy > 0, wall_ms_profiled=wall_ms,
+                kernel_ms=busy, kernel_share_of_wall=busy / wall_ms,
+                groups_ms=groups,
+                top=[dict(ms=ms, count=n, name=k[:160])
+                     for ms, n, k in kernels[:12]])
+
+
+def say_profile(what, p):
+    if not p["recorded"]:
+        say(f"profile of {what}: the trace holds no device time "
+            "(torch.profiler's key_averages() show none on this machine)")
+        return
+    say(f"profile of {what}: kernels {p['kernel_ms']:.1f} ms in a "
+        f"{p['wall_ms_profiled']:.1f} ms profiled step "
+        f"({100 * p['kernel_share_of_wall']:.1f} % of its wall; above 100 % "
+        "where kernels ran side by side); by group: "
+        + ", ".join(f"{k} {v:.2f} ms ({100 * v / p['kernel_ms']:.1f} %)"
+                    for k, v in p["groups_ms"].items()))
+    for k in p["top"]:
+        say(f"  {k['ms']:10.3f} ms {k['count']:6d}x  {k['name']}")
+
+
 def training_phase(cfg, g_per, e_per, name, power_limit):
     """Phase 8.  Returns the `training` record and the launches per step."""
     B, k = cfg.train.batch_size, cfg.train.unrolled_k
@@ -753,6 +928,9 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
         steps.append(dict(metrics=metrics, device_ms=dev_ms,
                           host_ms=host_ms))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("== phase 8a: one more fp32 step under torch.profiler")
+    prof_fp32 = profile_step(trainer, state, batches[-1])
+    say_profile("one fp32 step", prof_fp32)
     del trainer, state
     torch.cuda.empty_cache()
 
@@ -797,6 +975,8 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
         bf16.append(dict(metrics=metrics, device_ms=dev_ms,
                          host_ms=host_ms))
     bf16_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof_bf16 = profile_step(trainer, state, batches[2])
+    say_profile("one bf16 step", prof_bf16)
     del trainer, state
     torch.cuda.empty_cache()
 
@@ -811,13 +991,14 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
         img_s=1e3 * B * len(timed) / sum(s["device_ms"] for s in timed),
         peak_mem_gib=peak, metrics_last_step=timed[-1]["metrics"],
         launches_per_step=want,
+        profile=prof_fp32,
         fused_step=dict(device_ms=f_ms, launches=f_counts,
                         worst_rel_diff_to_unfused=worst),
         bf16=dict(warm_step_device_ms=bf16[0]["device_ms"],
                   step_device_ms=bf16[1]["device_ms"],
                   step_host_ms=bf16[1]["host_ms"],
                   img_s=1e3 * B / bf16[1]["device_ms"], peak_mem_gib=bf16_peak,
-                  metrics=bf16[1]["metrics"]))
+                  metrics=bf16[1]["metrics"], profile=prof_bf16))
     return record, want, f_counts
 
 
@@ -839,49 +1020,90 @@ def norm_uses_per_step(cfg, shapes):
     return uses
 
 
+def rotating(fn, sets):
+    """A call with no argument that runs ``fn`` on the next of ``sets``, in
+    turn."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
 def time_training_kernels(cfg, shapes, cgen, name, power_limit):
     """Phase 9: device time of every kernel at the shapes of one step."""
-    say("== phase 9: kernel timing at the shapes of one train step (CUDA "
-        "events around calls queued behind a device sleep; the norms with "
-        "t=0, g=1, b=0, no ReLU, so that F.instance_norm and its autograd "
-        "backward compute the same functions)")
+    say("== phase 9: kernel timing at the shapes of one train step, fp32 and "
+        "bf16 (CUDA events around calls queued behind a device sleep; the "
+        "norms with t=0, g=1, b=0, no ReLU, so that F.instance_norm and its "
+        "autograd backward compute the same functions; the timed calls "
+        "take turns over copies of x and dy that hold at least "
+        f"{L2_FLUSH_BYTES / 1e6:g} MB, so that none finds its inputs in "
+        "L2)")
     uses = norm_uses_per_step(cfg, shapes)
-    tot = {kn: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                    by=set()) for kn in ("cbinorm_fwd", "cbinorm_bwd")}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_bf16",
+            "bound_ms_bf16", "library_ms_bf16")
+    tot = {kn: dict(dict.fromkeys(keys, 0.0), by=set())
+           for kn in ("cbinorm_fwd", "cbinorm_bwd")}
     for (C, H, W, B), (n_fwd, n_bwd) in sorted(uses.items()):
-        x = torch.randn((B, C, H, W), generator=cgen, device=DEV)
-        dy = torch.randn((B, C, H, W), generator=cgen, device=DEV)
+        row = dict(C=C, H=H, W=W, B=B, fwd_per_step=n_fwd,
+                   bwd_per_step=n_bwd, card=name, power_limit=power_limit)
         t = torch.zeros((B, C), device=DEV)
         g = torch.ones((C,), device=DEV)
         b = torch.zeros((C,), device=DEV)
-        _, mu, r = norm.cbinorm_fwd(x, t, g, b)
-        row = dict(C=C, H=H, W=W, B=B, fwd_per_step=n_fwd,
-                   bwd_per_step=n_bwd, card=name, power_limit=power_limit)
-        row["fwd_ms"] = cuda_ms(lambda: norm.cbinorm_fwd(x, t, g, b))[0]
-        row["fwd_plain_ms"] = cuda_ms(
-            lambda: norm.cbinorm_plain(x, t, g, b))[0]
-        row["fwd_library_ms"] = cuda_ms(
-            lambda: F.instance_norm(x, eps=1e-5))[0]
-        row["fwd_bound_ms"], fby = bound_ms(B, C, H, W)
-        if n_bwd:
-            row["bwd_ms"] = cuda_ms(
-                lambda: norm.cbinorm_bwd(x, t, g, b, mu, r, dy))[0]
-            row["bwd_plain_ms"] = cuda_ms(
-                lambda: norm.cbinorm_bwd_plain(x, t, g, b, mu, r, dy))[0]
-            xr = x.detach().requires_grad_(True)
-            y = F.instance_norm(xr, eps=1e-5)
-            row["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                y, xr, dy, retain_graph=True))[0]
-            row["bwd_bound_ms"], bby = bwd_bound_ms(B, C, H, W)
-            del xr, y
+        for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            isz = torch.finfo(dtype).bits // 8
+            copies = max(1, math.ceil(L2_FLUSH_BYTES / (2 * B * C * H * W
+                                                        * isz)))
+            sets = []
+            for _ in range(copies):
+                x = torch.randn((B, C, H, W), generator=cgen,
+                                device=DEV).to(dtype)
+                dy = torch.randn((B, C, H, W), generator=cgen,
+                                 device=DEV).to(dtype)
+                _, mu, r = norm.cbinorm_fwd(x, t, g, b)
+                sets.append((x, dy, mu, r))
+            row["copies" + sfx] = copies
+            row["fwd_ms" + sfx] = cuda_ms(rotating(
+                lambda x, dy, mu, r: norm.cbinorm_fwd(x, t, g, b), sets))[0]
+            if dtype == torch.float32:
+                row["fwd_plain_ms"] = cuda_ms(rotating(
+                    lambda x, *_: norm.cbinorm_plain(x, t, g, b), sets))[0]
+            row["fwd_library_ms" + sfx] = cuda_ms(rotating(
+                lambda x, *_: F.instance_norm(x, eps=1e-5), sets))[0]
+            row["fwd_bound_ms" + sfx], fby = bound_ms(B, C, H, W, isz)
+            if n_bwd:
+                row["bwd_ms" + sfx] = cuda_ms(rotating(
+                    lambda x, dy, mu, r: norm.cbinorm_bwd(x, t, g, b, mu, r,
+                                                          dy), sets))[0]
+                if dtype == torch.float32:
+                    row["bwd_plain_ms"] = cuda_ms(rotating(
+                        lambda x, dy, mu, r: norm.cbinorm_bwd_plain(
+                            x, t, g, b, mu, r, dy), sets))[0]
+                graphs = []
+                for x, dy, _, _ in sets:
+                    xr = x.detach().requires_grad_(True)
+                    graphs.append((F.instance_norm(xr, eps=1e-5), xr, dy))
+                row["bwd_library_ms" + sfx] = cuda_ms(rotating(
+                    lambda y, xr, dy: torch.autograd.grad(
+                        y, xr, dy, retain_graph=True), graphs))[0]
+                row["bwd_bound_ms" + sfx], bby = bwd_bound_ms(B, C, H, W,
+                                                              isz)
+                del graphs
+            del sets
         say(json.dumps({"train_kernel_shape": row}))
         for kn, n, pre in (("cbinorm_fwd", n_fwd, "fwd"),
                            ("cbinorm_bwd", n_bwd, "bwd")):
             if n:
-                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                for key in keys:
                     tot[kn][key] += n * row[f"{pre}_{key}"]
                 tot[kn]["by"].add(fby if pre == "fwd" else bby)
-        del x, dy, t, g, b, mu, r
+        del t, g, b
+        torch.cuda.empty_cache()
+    for kn in ("cbinorm_fwd", "cbinorm_bwd"):
+        v = tot[kn]
+        say(f"{kn} per step: fp32 {v['ms']:.3f} ms, bound "
+            f"{v['bound_ms']:.3f} ms ({v['ms'] / v['bound_ms']:.3f}x), "
+            f"library {v['library_ms']:.3f} ms; bf16 {v['ms_bf16']:.3f} ms, "
+            f"bound {v['bound_ms_bf16']:.3f} ms "
+            f"({v['ms_bf16'] / v['bound_ms_bf16']:.3f}x), library "
+            f"{v['library_ms_bf16']:.3f} ms")
 
     mu = (torch.randn((cfg.train.batch_size, cfg.model.ndim),
                       generator=cgen, device=DEV) * 1.5 + 0.1)
@@ -941,12 +1163,12 @@ def main():
 
     say("== phase 6: the training kernels vs plain on the card")
     cgen = torch.Generator(device=DEV).manual_seed(4)
-    errs = check_training_kernels(all_shapes, cgen)
+    errs, dgdb = check_training_kernels(all_shapes, cgen)
     errs["cbinorm_fwd"] = [fwd_err[torch.float32], fwd_err[torch.bfloat16]]
 
     say(f"== phase 7: gradients of G + E + D at batch {CHECK_BATCH}, "
         "kernels vs plain norm")
-    check_gradient_repair(cfg, g_per, e_per)
+    grad_worst = check_gradient_repair(cfg, g_per, e_per)
 
     training, launches, fused_launches = training_phase(
         cfg, g_per, e_per, name, power_limit)
@@ -969,6 +1191,11 @@ def main():
                  f"{PRESET} at batch {cfg.train.batch_size}")
         if errs[kn][1] is not None:
             entry["max_abs_err_bf16"] = errs[kn][1]
+        if kn in ("cbinorm_fwd", "cbinorm_bwd"):
+            entry.update({k: t[k] for k in ("ms_bf16", "bound_ms_bf16",
+                                            "library_ms_bf16")})
+        if kn == "cbinorm_bwd":
+            entry["dg_db_rel_err_vs_float64"] = dgdb["kernel"]
         if kn == "cbinorm_fwd":
             entry["launches_serving"] = serving["launches"]
         if kn == "cbinorm_bwd":
@@ -982,6 +1209,11 @@ def main():
     norm_ms = tot["cbinorm_fwd"]["ms"] + tot["cbinorm_bwd"]["ms"]
     training["norm_ms_per_step"] = norm_ms
     training["norm_share_of_step"] = norm_ms / training["step_device_ms_mean"]
+    norm_bf16 = tot["cbinorm_fwd"]["ms_bf16"] + tot["cbinorm_bwd"]["ms_bf16"]
+    training["bf16"]["norm_ms_per_step"] = norm_bf16
+    training["bf16"]["norm_share_of_step"] = \
+        norm_bf16 / training["bf16"]["step_device_ms"]
+    training["grad_rel_l2_worst"] = {k: v[0] for k, v in grad_worst.items()}
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"training": training}))
     say(json.dumps({"serving": serving}))

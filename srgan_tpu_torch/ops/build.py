@@ -32,7 +32,8 @@ SIGNATURES = {
         "srgan_cbinorm_fwd": ((_P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _F, _I, _I, _P), _I),
         "srgan_cbinorm_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _I, _I, _I, _I, _I, _P), _I),
+                               _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P), _I),
     },
     "histogram": {
         "srgan_soft_histogram_fwd": ((_P, _P, _I, _I, _I, _F, _F, _F, _F,

@@ -134,25 +134,60 @@ def _launch(x, t, g, b, eps: float, relu: bool):
     return out, mu, rstd
 
 
-def _launch_bwd(x, t, g, b, mu, rstd, dy, relu: bool):
-    """One call of ``srgan_cbinorm_bwd``: a block per plane writes dx, dt
-    and the per-plane sums; a second grid of the same call reduces the sums
-    over the batch into dg and db, in a fixed order (no atomics)."""
+# The backward kernel's tiers (csrc/cbinorm.cu, which checks every plan it
+# is given against the same constants): a warp per plane up to
+# 32 * WARP_ITEMS[-1] elements, then 1 to MAX_CLUSTER blocks of CTA_THREADS
+# threads holding CTA_ITEMS elements each, then two passes.
+BWD_WARP, BWD_CTA, BWD_TWO_PASS = 0, 1, 2
+WARP_ITEMS = (2, 8, 32)
+CTA_THREADS, CTA_ITEMS, MAX_CLUSTER = 256, 16, 8
+
+
+def bwd_plan(hw: int, itemsize: int, aligned: bool = True):
+    """(tier, items, vec, cluster) of the backward kernel for planes of
+    ``hw`` elements of ``itemsize`` bytes: the elements each thread holds
+    in registers (0 for two passes), the elements per 16-byte access (1:
+    scalar) and the blocks per plane.  16-byte accesses need 16-byte
+    aligned tensors and a plane length that keeps every plane so."""
+    vec = 16 // itemsize
+    if not aligned or hw % vec:
+        vec = 1
+    if hw <= 32 * WARP_ITEMS[-1]:
+        items = next(e for e in WARP_ITEMS if 32 * e >= hw)
+        return BWD_WARP, items, vec if items % vec == 0 else 1, 1
+    cluster = -(-hw // (CTA_THREADS * CTA_ITEMS))
+    if cluster <= MAX_CLUSTER:
+        return BWD_CTA, CTA_ITEMS, vec, cluster
+    return BWD_TWO_PASS, 0, 1, 1
+
+
+def _launch_bwd(x, t, g, b, mu, rstd, dy, relu: bool, affine: bool):
+    """One call of ``srgan_cbinorm_bwd``: one grid writes dx (and, under
+    ``affine``, dt and the per-plane sums), and under ``affine`` a second
+    grid of the same call reduces the sums over the batch into dg and db in
+    a fixed order (no atomics).  Without ``affine`` dt, dg and db are
+    None."""
     from srgan_tpu_torch.ops.build import load
 
     global BWD_LAUNCHES
     B, C, H, W = x.shape
     dx = torch.empty_like(x)
-    dt = torch.empty((B, C), dtype=torch.float32, device=x.device)
-    sums = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
-    dg = torch.empty((C,), dtype=torch.float32, device=x.device)
-    db = torch.empty_like(dg)
+    dt = parts = dg = db = None
+    if affine:
+        dt = torch.empty((B, C), dtype=torch.float32, device=x.device)
+        parts = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
+        dg = torch.empty((C,), dtype=torch.float32, device=x.device)
+        db = torch.empty_like(dg)
+    aligned = all(v.data_ptr() % 16 == 0 for v in (x, dy, dx))
+    plan = bwd_plan(H * W, x.element_size(), aligned)
     fn = load("cbinorm").srgan_cbinorm_bwd
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dy.data_ptr(), t.data_ptr(), g.data_ptr(),
                  b.data_ptr(), mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-                 dt.data_ptr(), sums.data_ptr(), dg.data_ptr(), db.data_ptr(),
-                 B, C, H * W, int(relu), _DTYPE_CODE[x.dtype], _stream(x))
+                 *(0 if v is None else v.data_ptr()
+                   for v in (dt, parts, dg, db)),
+                 B, C, H * W, int(relu), int(affine), _DTYPE_CODE[x.dtype],
+                 *plan, _stream(x))
     if err != 0:
         raise RuntimeError(f"cbinorm backward kernel launch failed: "
                            f"cudaError_t {err}")
@@ -169,10 +204,13 @@ def cbinorm_fwd(x, t, g, b, eps: float = 1e-5, relu: bool = False):
     return cbinorm_plain(x, t, g, b, eps, relu)
 
 
-def cbinorm_bwd(x, t, g, b, mu, rstd, dy, relu: bool = False):
+def cbinorm_bwd(x, t, g, b, mu, rstd, dy, relu: bool = False,
+                affine: bool = True):
     """The backward alone: the kernel on a CUDA x, ``cbinorm_bwd_plain`` on
     a CPU x.  dy must have x's shape; it is cast to x's dtype.  Returns
-    (dx, dt, dg, db)."""
+    (dx, dt, dg, db); without ``affine`` (no gradient wanted for t, g or b)
+    the kernel writes dx alone, and dt, dg and db are None on both
+    devices."""
     _check(x, t, g, b)
     dy = dy.to(x.dtype).contiguous()
     if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
@@ -184,14 +222,16 @@ def cbinorm_bwd(x, t, g, b, mu, rstd, dy, relu: bool = False):
             raise ValueError(f"cbinorm_bwd: {name} must be contiguous "
                              f"float32 {tuple(x.shape[:2])} on {x.device}")
     if x.device.type == "cuda":
-        return _launch_bwd(x, t, g, b, mu, rstd, dy, relu)
-    return cbinorm_bwd_plain(x, t, g, b, mu, rstd, dy, relu)
+        return _launch_bwd(x, t, g, b, mu, rstd, dy, relu, affine)
+    dx, dt, dg, db = cbinorm_bwd_plain(x, t, g, b, mu, rstd, dy, relu)
+    return (dx, dt, dg, db) if affine else (dx, None, None, None)
 
 
 class CBINormFunction(torch.autograd.Function):
     """``cbinorm_fwd`` with ``cbinorm_bwd`` as its gradient.  Saves x, t, g,
     b, mu and rstd; the ReLU mask is recomputed from them.  mu and rstd are
-    outputs without a gradient."""
+    outputs without a gradient.  Where none of t, g, b needs a gradient (the
+    plain instance norm) the backward asks for dx alone."""
 
     @staticmethod
     def forward(ctx, x, t, g, b, eps, relu):
@@ -204,8 +244,11 @@ class CBINormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmu, _drstd):
         x, t, g, b, mu, rstd = ctx.saved_tensors
-        dx, dt, dg, db = cbinorm_bwd(x, t, g, b, mu, rstd, dy, ctx.relu)
-        return dx, dt, dg, db, None, None
+        want = ctx.needs_input_grad[:4]
+        grads = cbinorm_bwd(x, t, g, b, mu, rstd, dy, ctx.relu,
+                            affine=any(want[1:]))
+        return (*(v if w else None for v, w in zip(grads, want)), None,
+                None)
 
 
 def fused_cbinorm(x, t, g, b, eps: float = 1e-5, relu: bool = False):
