@@ -28,7 +28,9 @@ from the root of a checkout; no install step, no argument.  Phases:
      of 2, 4 and 8 blocks, a plane above the register tiers, an unaligned
      view), without affine, twice for the same bits, and its dg and db
      against the plain backward in float64; the soft histogram forward and
-     backward and the fused diversification loss at mu (128, 8);
+     backward at the main path's mu (128, 8) with 50 bins and at four more
+     (B, D, bins), batch 4,096 among them, each called twice for the same
+     bits; the fused diversification loss at mu (128, 8);
   7. the gradient repair: a G + E + D forward and backward at batch 8
      through the kernels against the same models with the plain norm
      forced, every parameter's gradient compared;
@@ -40,7 +42,9 @@ from the root of a checkout; no install step, no argument.  Phases:
      unfused one; a bf16 step, and one more under torch.profiler;
   9. CUDA-event timings of every kernel at the shapes of one train step,
      the norms in fp32 and bf16, beside its bound, its plain twin and,
-     where one exists, the PyTorch call that computes the same function.
+     where one exists, the PyTorch call that computes the same function;
+     the small kernels also beside an empty launch timed the same way
+     (floor_ms), the soft histogram also at batch 4,096.
 
 Without CUDA it raises before printing a result.  It starts no server and
 no thread; its only subprocesses are nvidia-smi and nvcc, both with a
@@ -126,6 +130,13 @@ BWD_FLOPS_PER_ELEM = 11
 # accumulate (forward); and the backward's extra multiplies (-w z / sigma g)
 HIST_OPS = 5
 HIST_BWD_OPS = 9
+# (B, D, bins) of phase 6's histogram checks: the main path's shape first,
+# then batch 1, a ragged shape (neither 32 nor a block of 8 divides B, D or
+# bins), more bins, and a batch larger than one 2,048-sample shared-memory
+# chunk of the forward
+HIST_SHAPES = ((128, 8, 50), (1, 8, 50), (37, 3, 7), (128, 8, 128),
+               (4096, 8, 50))
+HIST_LARGE_B = HIST_SHAPES[-1][0]
 # timed calls take turns over copies of their inputs until the copies hold
 # this many bytes of x and dy: three times the H100's 50 MB L2
 L2_FLUSH_BYTES = 150e6
@@ -608,26 +619,52 @@ def check_norm_bwd(all_shapes, cgen):
     return errs, worst
 
 
+def check_histogram(cgen):
+    """Both soft-histogram kernels against their plain twins at every
+    ``HIST_SHAPES`` entry, each called twice for the same bits.  Returns
+    {kernel: [max abs error at the main path's shape, None]} and, per
+    kernel, the relative error at every shape."""
+    errs = {"soft_histogram_fwd": [None, None],
+            "soft_histogram_bwd": [None, None]}
+    by_shape = {kn: {} for kn in errs}
+    for B, D, bins in HIST_SHAPES:
+        mu = (torch.randn((B, D), generator=cgen, device=DEV) * 1.5 + 0.1)
+        gh = torch.randn((D, bins), generator=cgen, device=DEV)
+        h = histogram.soft_histogram_fwd(mu, bins)
+        h2 = histogram.soft_histogram_fwd(mu, bins)
+        dmu = histogram.soft_histogram_bwd(mu, gh, bins)
+        dmu2 = histogram.soft_histogram_bwd(mu, gh, bins)
+        torch.cuda.synchronize()
+        h_p = histogram.soft_histogram_cols_plain(mu, bins)
+        dmu_p = histogram.soft_histogram_cols_bwd_plain(mu, gh, bins)
+        e_h, e_d = rel_err(h, h_p), rel_err(dmu, dmu_p)
+        same = torch.equal(h, h2) and torch.equal(dmu, dmu2)
+        say(f"soft histogram mu ({B}, {D}), {bins} bins: forward rel "
+            f"{e_h:.2e}, backward rel {e_d:.2e} (tol {REL_TOL:g}); "
+            f"repeat bit-equal: {same}")
+        check(e_h <= REL_TOL and e_d <= REL_TOL,
+              f"histogram kernels disagree at ({B}, {D}, {bins})")
+        check(same, f"histogram kernels do not repeat at ({B}, {D}, {bins})")
+        key = f"{B}x{D}x{bins}"
+        by_shape["soft_histogram_fwd"][key] = e_h
+        by_shape["soft_histogram_bwd"][key] = e_d
+        if (B, D, bins) == HIST_SHAPES[0]:
+            errs["soft_histogram_fwd"][0] = float((h - h_p).abs().max())
+            errs["soft_histogram_bwd"][0] = float((dmu - dmu_p).abs().max())
+    return errs, by_shape
+
+
 def check_training_kernels(all_shapes, cgen):
     """Phase 6.  Returns ({kernel: (max abs error fp32, bf16 or None)},
-    the dg/db distances to float64)."""
+    the dg/db distances to float64, the histogram kernels' relative errors
+    by shape)."""
     bwd_errs, dgdb = check_norm_bwd(all_shapes, cgen)
     errs = {"cbinorm_bwd": bwd_errs}
 
-    mu = (torch.randn((128, 8), generator=cgen, device=DEV) * 1.5 + 0.1)
-    gh = torch.randn((8, 50), generator=cgen, device=DEV)
-    h = histogram.soft_histogram_fwd(mu)
-    dmu = histogram.soft_histogram_bwd(mu, gh)
-    torch.cuda.synchronize()
-    h_p = histogram.soft_histogram_cols_plain(mu)
-    dmu_p = histogram.soft_histogram_cols_bwd_plain(mu, gh)
-    e_h, e_d = rel_err(h, h_p), rel_err(dmu, dmu_p)
-    say(f"soft histogram mu (128, 8): forward rel {e_h:.2e}, backward rel "
-        f"{e_d:.2e} (tol {REL_TOL:g})")
-    check(e_h <= REL_TOL and e_d <= REL_TOL, "histogram kernels disagree")
-    errs["soft_histogram_fwd"] = [float((h - h_p).abs().max()), None]
-    errs["soft_histogram_bwd"] = [float((dmu - dmu_p).abs().max()), None]
+    hist_errs, hist_rel = check_histogram(cgen)
+    errs.update(hist_errs)
 
+    mu = (torch.randn((128, 8), generator=cgen, device=DEV) * 1.5 + 0.1)
     target = L.histogram_target(torch.Generator(device=DEV).manual_seed(2))
     out = diversification.diversification_fwd(mu, target, 128)
     torch.cuda.synchronize()
@@ -638,7 +675,7 @@ def check_training_kernels(all_shapes, cgen):
         f"(tol {REL_TOL:g})")
     check(e_v <= REL_TOL, "diversification kernel disagrees")
     errs["diversification_fwd"] = [float((out - out_p).abs().max()), None]
-    return errs, dgdb
+    return errs, dgdb, hist_rel
 
 
 class deterministic_cudnn:
@@ -1105,13 +1142,16 @@ def time_training_kernels(cfg, shapes, cgen, name, power_limit):
             f"({v['ms_bf16'] / v['bound_ms_bf16']:.3f}x), library "
             f"{v['library_ms_bf16']:.3f} ms")
 
-    mu = (torch.randn((cfg.train.batch_size, cfg.model.ndim),
-                      generator=cgen, device=DEV) * 1.5 + 0.1)
+    tot.update(time_small_kernels(cfg, cgen))
+    return tot
+
+
+def small_kernel_calls(mu, gh, target):
+    """{kernel: (kernel call, plain call, (bound ms, bound by))} of the
+    small kernels on mu (B, D), gh (D, 50) and the target (50,)."""
     Bm, Dm = mu.shape
-    gh = torch.randn((Dm, 50), generator=cgen, device=DEV)
-    target = L.histogram_target(torch.Generator(device=DEV).manual_seed(2))
     n_hist = Bm * Dm * 50
-    small = {
+    return {
         "soft_histogram_fwd": (
             lambda: histogram.soft_histogram_fwd(mu),
             lambda: histogram.soft_histogram_cols_plain(mu),
@@ -1127,11 +1167,39 @@ def time_training_kernels(cfg, shapes, cgen, name, power_limit):
             bound(4 * (Bm * Dm + 50 + 3),
                   2 * Bm * Dm * Dm + HIST_OPS * n_hist + 4 * Dm * 50)),
     }
-    for kn, (fn, plain_fn, (bd, by)) in small.items():
-        k_ms, host_ms = cuda_ms(fn, iters=50)
-        tot[kn] = dict(ms=k_ms, plain_ms=cuda_ms(plain_fn, iters=50)[0],
-                       bound_ms=bd, library_ms=None, by={by},
-                       host_ms=host_ms)
+
+
+def time_small_kernels(cfg, cgen):
+    """Phase 9's small kernels at the train step's mu (B, ndim), the
+    histogram kernels also at batch ``HIST_LARGE_B``, beside an empty
+    launch timed the same way (``floor_ms``): what launch latency alone
+    costs back to back."""
+    floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), iters=50)[0]
+    say(f"empty launch (torch.cuda._sleep(0)), back to back: "
+        f"{floor_ms:.4f} ms")
+    target = L.histogram_target(torch.Generator(device=DEV).manual_seed(2))
+    tot = {}
+    for B in (cfg.train.batch_size, HIST_LARGE_B):
+        mu = (torch.randn((B, cfg.model.ndim), generator=cgen, device=DEV)
+              * 1.5 + 0.1)
+        gh = torch.randn((cfg.model.ndim, 50), generator=cgen, device=DEV)
+        main = B == cfg.train.batch_size
+        for kn, (fn, plain_fn, (bd, by)) in small_kernel_calls(
+                mu, gh, target).items():
+            if not main and kn == "diversification_fwd":
+                continue   # its mu must fit 48 KB of shared memory
+            k_ms, host_ms = cuda_ms(fn, iters=50)
+            plain_ms = cuda_ms(plain_fn, iters=50)[0]
+            say(f"{kn} mu ({B}, {cfg.model.ndim}): {k_ms:.4f} ms, floor "
+                f"{floor_ms:.4f} ms ({k_ms / floor_ms:.2f}x), bound "
+                f"{bd:.2e} ms ({by}), plain {plain_ms:.4f} ms")
+            if main:
+                tot[kn] = dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bd,
+                               library_ms=None, by={by}, host_ms=host_ms,
+                               floor_ms=floor_ms)
+            else:
+                tot[kn].update({f"ms_B{B}": k_ms, f"plain_ms_B{B}": plain_ms,
+                                f"bound_ms_B{B}": bd})
     return tot
 
 
@@ -1163,7 +1231,7 @@ def main():
 
     say("== phase 6: the training kernels vs plain on the card")
     cgen = torch.Generator(device=DEV).manual_seed(4)
-    errs, dgdb = check_training_kernels(all_shapes, cgen)
+    errs, dgdb, hist_rel = check_training_kernels(all_shapes, cgen)
     errs["cbinorm_fwd"] = [fwd_err[torch.float32], fwd_err[torch.bfloat16]]
 
     say(f"== phase 7: gradients of G + E + D at batch {CHECK_BATCH}, "
@@ -1203,6 +1271,11 @@ def main():
                                 "F.instance_norm")
         if kn == "diversification_fwd":
             entry["path"] = "the SRGAN_TPU_FUSED_DIV=1 step"
+        if "floor_ms" in t:
+            entry.update({k: v for k, v in t.items() if k == "floor_ms"
+                          or k.endswith(f"_B{HIST_LARGE_B}")})
+        if kn in hist_rel:
+            entry["rel_err_by_shape"] = hist_rel[kn]
         if t["library_ms"] is None:
             entry["library"] = "none: no one PyTorch call computes it"
         entries.append(entry)

@@ -81,6 +81,40 @@ def test_soft_histogram_plain_twins_agree(data):
            mu_t.grad.numpy())
 
 
+BAD_HIST_INPUTS = {
+    "float64": lambda mu, gh: (mu.double(), gh),
+    "non_contiguous": lambda mu, gh: (mu.T.contiguous().T, gh),
+    "empty": lambda mu, gh: (mu[:0], gh),
+    "gh_shape": lambda mu, gh: (mu, gh.T.contiguous()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_HIST_INPUTS) + ["cpu_is_plain"])
+def test_soft_histogram_wrapper_contract(data, case):
+    """The wrappers refuse what the kernels do not take, with ValueError,
+    and on a CPU tensor return the plain twins' bits."""
+    mu = _t(data.mu)
+    gh = _t(data.rng.standard_normal((D, 50)).astype(np.float32))
+    if case == "cpu_is_plain":
+        h = histogram.soft_histogram_fwd(mu)
+        assert torch.equal(h, histogram.soft_histogram_cols_plain(mu))
+        assert torch.equal(histogram.soft_histogram_bwd(mu, gh),
+                           histogram.soft_histogram_cols_bwd_plain(mu, gh))
+        mu_g = _t(data.mu, grad=True)
+        got = histogram.soft_histogram_cols(mu_g)
+        got.backward(gh)
+        assert torch.equal(got.detach(), h)
+        assert torch.equal(mu_g.grad,
+                           histogram.soft_histogram_cols_bwd_plain(mu, gh))
+        return
+    bad_mu, bad_gh = BAD_HIST_INPUTS[case](mu, gh)
+    if case != "gh_shape":
+        with pytest.raises(ValueError):
+            histogram.soft_histogram_fwd(bad_mu)
+    with pytest.raises(ValueError):
+        histogram.soft_histogram_bwd(bad_mu, bad_gh)
+
+
 # ---------------------------------------------------------------------------
 # the fused diversification loss (Pallas row 4)
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """The port's SRGAN train step (``srgan_tpu_torch/training/gan.py``,
 ``GANTrainer``) against the JAX ``GANTrainer`` on the CPU, at a small size
-(32 px, g/d/e_nch 8, g_res_num 2, d_num_cls 3, e_num_cls 2, batch 4, k 2).
+(32 px, g/d/e_nch 8, g_res_num 2, d_num_cls 3, e_num_cls 2, batch 4, k 2),
+and in cases that take the step's other branches: no identity loss, no
+classification loss, k = 1, and a later epoch's learning rates.
 
 Both sides start from the same weights (the JAX init, carried over by the
 port's converters), take the same in-step normal draws (injected through
@@ -59,18 +61,31 @@ MODEL = dict(image_size=HW, g_nch=8, g_res_num=2, d_nch=8, d_num_cls=3,
              e_nch=8, e_num_cls=2)
 FULL = dict(cycle=5, idt=5, reg=0.5, idt_reg=0.5, KL=0, batch_KL=10,
             corr_enc=100, hist=100, cls=1)
+# case -> (loss weights, frozen encoder trunk, steps, unrolled_k, epoch)
 CASES = {
     # the proposed stack with the frozen encoder trunk, two steps
-    "full_frozen": (FULL, True, 2),
+    "full_frozen": (FULL, True, 2, K, 0),
     # no phase-2 regression (its gradients are exactly zero), trunk trains
-    "no_phase2": (dict(FULL, reg=0.0, idt_reg=0.0), False, 1),
+    "no_phase2": (dict(FULL, reg=0.0, idt_reg=0.0), False, 1, K, 0),
+    # no identity loss, which also turns off phase 2's idt_reg * idt term
+    # (srgan_tpu/training/gan.py:341, :374, :397)
+    "idt0": (dict(FULL, idt=0.0), True, 1, K, 0),
+    # no domain classification in D or G (srgan_tpu/training/gan.py:299,
+    # :359)
+    "cls0": (dict(FULL, cls=0.0), True, 1, K, 0),
+    # one D update per step, the one inside phase 1 (srgan_tpu/training/
+    # gan.py:470-472)
+    "k1": (FULL, True, 1, 1, 0),
+    # a later epoch: ExponentialLR's rates through lr_at (srgan_tpu/
+    # training/gan.py:590-598)
+    "epoch2": (FULL, True, 1, K, 2),
 }
 
 
-def _configs(weights):
+def _configs(weights, k=K):
     def make(E, M, T, W):
         return E(name="parity", model=M(**MODEL),
-                 train=T(batch_size=B, unrolled_k=K, encoded_feature="mu",
+                 train=T(batch_size=B, unrolled_k=k, encoded_feature="mu",
                          lr_g=LR, lr_d=LR, lr_e=LR),
                  loss=W(**weights), trainer="srgan")
     return (make(JExperimentConfig, JModelConfig, JTrainConfig, JLossWeights),
@@ -137,17 +152,18 @@ def jax_init():
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_train_step_matches_jax(jax_init, case):
-    weights, frozen, n_steps = CASES[case]
-    jcfg, cfg = _configs(weights)
+    weights, frozen, n_steps, unrolled_k, epoch = CASES[case]
+    jcfg, cfg = _configs(weights, unrolled_k)
+    draws = jax_init.draws[:unrolled_k]
     jstate = jax_init.state if frozen else \
         jax_init.state.replace(e_mask=None)
     start = _state_dicts(*jax.device_get(
         (jstate.g_params, jstate.d_params, jstate.e_params)))
 
     jt = InjectedJAX(jcfg, donate=False)
-    jt.draws = jax_init.draws
+    jt.draws = draws
     pt = InjectedPort(cfg, device="cpu")
-    pt.draws = jax_init.draws
+    pt.draws = draws
     pstate = pt.init_state(g_state=start["g"], d_state=start["d"],
                            e_state=start["e"],
                            hist_target=np.asarray(jstate.hist_target),
@@ -155,10 +171,11 @@ def test_train_step_matches_jax(jax_init, case):
     jbatch = {k: jnp.asarray(v) for k, v in jax_init.batch.items()}
     for _ in range(n_steps):
         jt.draw_i = 0
-        jstate, jm = jt.step(jstate, jbatch, jax.random.PRNGKey(1))
+        jstate, jm = jt.step(jstate, jbatch, jax.random.PRNGKey(1),
+                             epoch=epoch)
         pt.draw_i = 0
-        pm = pt.step(pstate, jax_init.batch)
-        assert pt.draw_i == K
+        pm = pt.step(pstate, jax_init.batch, epoch=epoch)
+        assert pt.draw_i == unrolled_k
         assert set(pm) == set(jm)
         for k in jm:
             np.testing.assert_allclose(float(pm[k]), float(jm[k]),
@@ -169,7 +186,8 @@ def test_train_step_matches_jax(jax_init, case):
         (jstate.g_params, jstate.d_params, jstate.e_params)))
     _assert_param_parity(pstate.G.state_dict(), post["g"], 2 * n_steps, "G",
                          bound_only=weights["reg"] + weights["idt_reg"] > 0)
-    _assert_param_parity(pstate.D.state_dict(), post["d"], K * n_steps, "D")
+    _assert_param_parity(pstate.D.state_dict(), post["d"],
+                         unrolled_k * n_steps, "D")
     e_now = pstate.E.state_dict()
     _assert_param_parity(e_now, post["e"], n_steps, "E")
     for k, v in e_now.items():
