@@ -30,7 +30,10 @@ from the root of a checkout; no install step, no argument.  Phases:
      against the plain backward in float64; the soft histogram forward and
      backward at the main path's mu (128, 8) with 50 bins and at four more
      (B, D, bins), batch 4,096 among them, each called twice for the same
-     bits; the fused diversification loss at mu (128, 8);
+     bits; the fused diversification loss at six (B, D, bins), from the
+     main path's (128, 8, 50) to batch 4,096 and 20 dimensions, each
+     called twice for the same bits and held, like its plain fp32 twin,
+     against the same composition in float64;
   7. the gradient repair: a G + E + D forward and backward at batch 8
      through the kernels against the same models with the plain norm
      forced, every parameter's gradient compared;
@@ -44,7 +47,9 @@ from the root of a checkout; no install step, no argument.  Phases:
      the norms in fp32 and bf16, beside its bound, its plain twin and,
      where one exists, the PyTorch call that computes the same function;
      the small kernels also beside an empty launch timed the same way
-     (floor_ms), the soft histogram also at batch 4,096.
+     (floor_ms) and at batch 4,096, the fused diversification kernel also
+     at batch 2, and its backward (autograd of the plain composition) with
+     its device operations counted.
 
 Without CUDA it raises before printing a result.  It starts no server and
 no thread; its only subprocesses are nvidia-smi and nvcc, both with a
@@ -137,6 +142,13 @@ HIST_BWD_OPS = 9
 HIST_SHAPES = ((128, 8, 50), (1, 8, 50), (37, 3, 7), (128, 8, 128),
                (4096, 8, 50))
 HIST_LARGE_B = HIST_SHAPES[-1][0]
+# (B, D, bins) of phase 6's fused-diversification checks: the main path's
+# shape first, then batch 2 (the least the kernel takes), a ragged shape,
+# more bins, more dimensions (20) than a cluster has blocks (8), and a
+# batch above the 1,476 that the old one-block kernel's 48 KB of shared
+# memory took
+DIV_SHAPES = ((128, 8, 50), (2, 8, 50), (37, 3, 7), (128, 8, 128),
+              (128, 20, 50), (4096, 8, 50))
 # timed calls take turns over copies of their inputs until the copies hold
 # this many bytes of x and dy: three times the H100's 50 MB L2
 L2_FLUSH_BYTES = 150e6
@@ -654,28 +666,89 @@ def check_histogram(cgen):
     return errs, by_shape
 
 
+def diversification64(mu, target, n_cfg, bins, vmin=-10.0, vmax=10.0,
+                      sigma=0.2):
+    """[batch_kl, corr, hist] of ``diversification_plain``'s composition
+    computed in float64 (the plain losses cast to fp32, so the formulas are
+    written out here once more)."""
+    x, t = mu.double(), target.double()
+    B, D = x.shape
+    m = x.mean(dim=0)
+    xc = x - m
+    cov = xc.T @ xc / (B - 1)
+    var = torch.diagonal(cov)
+    v = var * n_cfg / (n_cfg - 1)
+    bkl = -0.5 * torch.sum(1.0 + torch.log(v) - m ** 2 - v)
+    std = torch.sqrt(var)
+    r = torch.clamp(cov / std[None, :] / std[:, None], -1.0, 1.0)
+    eye = torch.eye(D, dtype=torch.float64, device=x.device)
+    corr = torch.sum(torch.abs(r - eye)) / (D * (D - 1))
+    delta = (vmax - vmin) / bins
+    c = vmin + delta * (torch.arange(bins, dtype=torch.float64,
+                                     device=x.device) + 0.5)
+    z = (x.T[:, None, :] - c[None, :, None]) / sigma      # (D, bins, B)
+    h = torch.exp(-0.5 * z * z).sum(dim=2) * delta / (
+        sigma * math.sqrt(2 * math.pi))
+    p = h / h.sum(dim=1, keepdim=True) + 1e-8
+    hist = torch.sum(t[None, :] * (torch.log(t)[None, :] - torch.log(p)))
+    return torch.stack([bkl, corr, hist])
+
+
+def per_output_rel(got, want) -> float:
+    return float(((got.double() - want.double()).abs()
+                  / want.double().abs()).max())
+
+
+def check_diversification(cgen):
+    """The fused diversification kernel against its plain twin at every
+    ``DIV_SHAPES`` entry, each called twice for the same bits, and both
+    against the composition in float64.  Returns the max abs error at the
+    main path's shape and, by shape, the kernel's relative error, the plain
+    fp32 twin's and the kernel's distance to float64, and the plan's K."""
+    by_shape = {}
+    main_err = None
+    for B, D, bins in DIV_SHAPES:
+        mu = (torch.randn((B, D), generator=cgen, device=DEV) * 1.5 + 0.1)
+        target = L.histogram_target(
+            torch.Generator(device=DEV).manual_seed(2), bins)
+        K = diversification.plan(D)
+        out = diversification.diversification_fwd(mu, target, B, bins)
+        out2 = diversification.diversification_fwd(mu, target, B, bins)
+        torch.cuda.synchronize()
+        plain = diversification.diversification_plain(mu, target, B, bins)
+        want64 = diversification64(mu, target, B, bins)
+        e = per_output_rel(out, plain)
+        e64, p64 = per_output_rel(out, want64), per_output_rel(plain, want64)
+        same = torch.equal(out, out2)
+        say(f"fused diversification mu ({B}, {D}), {bins} bins, K = {K} "
+            f"blocks: {out.tolist()} vs plain "
+            f"{plain.tolist()}, max rel per output {e:.2e} (tol "
+            f"{REL_TOL:g}); to float64: kernel {e64:.2e}, plain fp32 twin "
+            f"{p64:.2e}; repeat bit-equal: {same}")
+        check(e <= REL_TOL,
+              f"diversification kernel disagrees at ({B}, {D}, {bins})")
+        check(same, f"diversification kernel does not repeat at "
+                    f"({B}, {D}, {bins})")
+        by_shape[f"{B}x{D}x{bins}"] = dict(rel_err=e, kernel_vs_float64=e64,
+                                           plain_vs_float64=p64, cluster=K)
+        if (B, D, bins) == DIV_SHAPES[0]:
+            main_err = float((out - plain).abs().max())
+    return main_err, by_shape
+
+
 def check_training_kernels(all_shapes, cgen):
     """Phase 6.  Returns ({kernel: (max abs error fp32, bf16 or None)},
     the dg/db distances to float64, the histogram kernels' relative errors
-    by shape)."""
+    by shape, the fused diversification kernel's checks by shape)."""
     bwd_errs, dgdb = check_norm_bwd(all_shapes, cgen)
     errs = {"cbinorm_bwd": bwd_errs}
 
     hist_errs, hist_rel = check_histogram(cgen)
     errs.update(hist_errs)
 
-    mu = (torch.randn((128, 8), generator=cgen, device=DEV) * 1.5 + 0.1)
-    target = L.histogram_target(torch.Generator(device=DEV).manual_seed(2))
-    out = diversification.diversification_fwd(mu, target, 128)
-    torch.cuda.synchronize()
-    out_p = diversification.diversification_plain(mu, target, 128)
-    e_v = float(((out - out_p).abs() / out_p.abs()).max())
-    say(f"fused diversification mu (128, 8), target (50,): "
-        f"{out.tolist()} vs plain {out_p.tolist()}, max rel {e_v:.2e} "
-        f"(tol {REL_TOL:g})")
-    check(e_v <= REL_TOL, "diversification kernel disagrees")
-    errs["diversification_fwd"] = [float((out - out_p).abs().max()), None]
-    return errs, dgdb, hist_rel
+    div_err, div_by_shape = check_diversification(cgen)
+    errs["diversification_fwd"] = [div_err, None]
+    return errs, dgdb, hist_rel, div_by_shape
 
 
 class deterministic_cudnn:
@@ -1169,11 +1242,40 @@ def small_kernel_calls(mu, gh, target):
     }
 
 
+def time_fused_backward(mu, target):
+    """(device ms, host ms, device operations) of one backward through
+    ``fused_diversification`` at mu (B, D): autograd of the plain
+    composition, as on the TPU; no kernel of this repository.  The
+    operations are counted under torch.profiler (None where its trace holds
+    no device event)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m = mu.detach().requires_grad_(True)
+    out = diversification.fused_diversification(m, target, mu.shape[0])
+    g = torch.tensor([10.0, 100.0, 100.0], device=DEV)
+
+    def fn():
+        return torch.autograd.grad(out, m, g, retain_graph=True)
+
+    dev_ms, host_ms = cuda_ms(fn, iters=20)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return dev_ms, host_ms, n or None
+
+
 def time_small_kernels(cfg, cgen):
-    """Phase 9's small kernels at the train step's mu (B, ndim), the
-    histogram kernels also at batch ``HIST_LARGE_B``, beside an empty
-    launch timed the same way (``floor_ms``): what launch latency alone
-    costs back to back."""
+    """Phase 9's small kernels at the train step's mu (B, ndim) and at
+    batch ``HIST_LARGE_B``, beside an empty launch timed the same way
+    (``floor_ms``): what launch latency alone costs back to back.  The
+    fused diversification kernel also at batch 2 (its latency with next to
+    no work), and its backward (autograd of the plain composition) at the
+    train step's mu."""
     floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), iters=50)[0]
     say(f"empty launch (torch.cuda._sleep(0)), back to back: "
         f"{floor_ms:.4f} ms")
@@ -1186,8 +1288,6 @@ def time_small_kernels(cfg, cgen):
         main = B == cfg.train.batch_size
         for kn, (fn, plain_fn, (bd, by)) in small_kernel_calls(
                 mu, gh, target).items():
-            if not main and kn == "diversification_fwd":
-                continue   # its mu must fit 48 KB of shared memory
             k_ms, host_ms = cuda_ms(fn, iters=50)
             plain_ms = cuda_ms(plain_fn, iters=50)[0]
             say(f"{kn} mu ({B}, {cfg.model.ndim}): {k_ms:.4f} ms, floor "
@@ -1196,10 +1296,29 @@ def time_small_kernels(cfg, cgen):
             if main:
                 tot[kn] = dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bd,
                                library_ms=None, by={by}, host_ms=host_ms,
-                               floor_ms=floor_ms)
+                               floor_ms=floor_ms, extra={})
             else:
-                tot[kn].update({f"ms_B{B}": k_ms, f"plain_ms_B{B}": plain_ms,
-                                f"bound_ms_B{B}": bd})
+                tot[kn]["extra"].update({f"ms_B{B}": k_ms,
+                                         f"plain_ms_B{B}": plain_ms,
+                                         f"bound_ms_B{B}": bd})
+        if main:
+            div = tot["diversification_fwd"]
+            mu2 = mu[:2].contiguous()
+            b2_ms = cuda_ms(lambda: diversification.diversification_fwd(
+                mu2, target, 2), iters=50)[0]
+            say(f"diversification_fwd mu (2, {cfg.model.ndim}), the least "
+                f"batch it takes: {b2_ms:.4f} ms")
+            div["extra"]["ms_B2"] = b2_ms
+            b_ms, b_host_ms, b_n = time_fused_backward(mu, target)
+            say(f"fused diversification backward (torch.autograd.grad "
+                f"through fused_diversification, autograd of the plain "
+                f"composition) mu ({B}, {cfg.model.ndim}): device "
+                f"{b_ms:.4f} ms, host {b_host_ms:.4f} ms per call, "
+                f"{b_n if b_n is not None else 'not measured'} device "
+                "operations per call (torch.profiler)")
+            div["extra"].update(backward_ms=b_ms,
+                                backward_host_ms=b_host_ms,
+                                backward_device_ops=b_n)
     return tot
 
 
@@ -1231,7 +1350,8 @@ def main():
 
     say("== phase 6: the training kernels vs plain on the card")
     cgen = torch.Generator(device=DEV).manual_seed(4)
-    errs, dgdb, hist_rel = check_training_kernels(all_shapes, cgen)
+    errs, dgdb, hist_rel, div_by_shape = check_training_kernels(all_shapes,
+                                                                cgen)
     errs["cbinorm_fwd"] = [fwd_err[torch.float32], fwd_err[torch.bfloat16]]
 
     say(f"== phase 7: gradients of G + E + D at batch {CHECK_BATCH}, "
@@ -1272,10 +1392,12 @@ def main():
         if kn == "diversification_fwd":
             entry["path"] = "the SRGAN_TPU_FUSED_DIV=1 step"
         if "floor_ms" in t:
-            entry.update({k: v for k, v in t.items() if k == "floor_ms"
-                          or k.endswith(f"_B{HIST_LARGE_B}")})
+            entry["floor_ms"] = t["floor_ms"]
         if kn in hist_rel:
             entry["rel_err_by_shape"] = hist_rel[kn]
+        if kn == "diversification_fwd":
+            entry["checks_by_shape"] = div_by_shape
+        entry.update(t.get("extra", {}))
         if t["library_ms"] is None:
             entry["library"] = "none: no one PyTorch call computes it"
         entries.append(entry)

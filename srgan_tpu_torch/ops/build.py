@@ -42,8 +42,8 @@ SIGNATURES = {
                                       _F, _P), _I),
     },
     "diversification": {
-        "srgan_diversification_fwd": ((_P, _P, _P, _I, _I, _I, _F, _F, _F,
-                                       _F, _F, _I, _P), _I),
+        "srgan_diversification_fwd": ((_P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                       _F, _F, _F, _F, _P), _I),
     },
 }
 

@@ -8,6 +8,16 @@ its forward launches ``srgan_diversification_fwd``
 ``diversification_plain``.  Its backward is autograd of
 ``diversification_plain`` on either device, as the TPU version's is
 (``diversification.py:124-130``): a (B, 8) op that no kernel would speed up.
+
+The kernel is one launch of one thread-block cluster of ``plan(D)`` blocks,
+a warp per work item: block r takes the columns d = r, r + K, ... (their
+moments, batch-KL and diagonal terms, soft histograms and, after a block
+barrier, histogram KL terms) and the unordered pairs u = r, r + K, ... of
+distinct columns (their covariance and corr terms); rank 0 adds the
+blocks' sums.  mu is read in place and the histogram rows go to a (D, bins)
+workspace, so the kernel takes any B, D >= 2 and bins >= 1 whose B * D,
+D * D and D * bins stay below 2^31, as the TPU kernel takes mu whole: no
+size depends on shared memory.
 """
 
 from __future__ import annotations
@@ -21,7 +31,9 @@ from srgan_tpu_torch.ops import losses as L
 
 # kernel launches since the last reset
 LAUNCHES = 0
-_SMEM_LIMIT = 48 * 1024
+# the most blocks in the kernel's cluster (csrc/diversification.cu checks
+# every plan against the same constant)
+MAX_CLUSTER = 8
 
 
 def diversification_plain(mu, target, n_batch_cfg: int, bins: int = 50,
@@ -37,8 +49,10 @@ def diversification_plain(mu, target, n_batch_cfg: int, bins: int = 50,
                                    use_kernel=False)])
 
 
-def _smem_bytes(B, D, bins):
-    return 4 * (B * D + D + D * D + D * bins + D)
+def plan(D: int) -> int:
+    """The kernel's cluster size K for mu (B, D): a block per column up to
+    ``MAX_CLUSTER``.  Block r owns the columns d = r, r + K, ..."""
+    return min(MAX_CLUSTER, D)
 
 
 def diversification_fwd(mu, target, n_batch_cfg: int, bins: int = 50,
@@ -58,30 +72,30 @@ def diversification_fwd(mu, target, n_batch_cfg: int, bins: int = 50,
                          f"contiguous float32 ({bins},) on {mu.device}, got "
                          f"{tuple(target.shape)} on {target.device}")
     B, D = mu.shape
-    if B < 2 or D < 2:
-        raise ValueError(f"fused_diversification needs B, D >= 2, got "
-                         f"{(B, D)}")
+    if B < 2 or D < 2 or bins < 1:
+        raise ValueError(f"fused_diversification needs B, D >= 2 and bins "
+                         f">= 1, got {(B, D, bins)}")
+    if max(B, D, bins) * D >= 2 ** 31:
+        raise ValueError(f"fused_diversification: (B, D, bins) = "
+                         f"{(B, D, bins)} overflows the kernel's int indexes")
     if mu.device.type == "cpu":
         return diversification_plain(mu, target, n_batch_cfg, bins, vmin,
                                      vmax, sigma)
     if mu.device.type != "cuda":
         raise ValueError(f"fused_diversification runs on cuda (kernel) or "
                          f"cpu (plain), not on {mu.device}")
-    smem = _smem_bytes(B, D, bins)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"fused_diversification: (B, D, bins) = "
-                         f"{(B, D, bins)} needs {smem} bytes of shared "
-                         f"memory, more than the kernel's {_SMEM_LIMIT}")
     from srgan_tpu_torch.ops.build import load
 
     delta, norm = histogram._consts(bins, vmin, vmax, sigma)
     out = torch.empty((3,), dtype=torch.float32, device=mu.device)
+    rows = torch.empty((D, bins), dtype=torch.float32, device=mu.device)
     with torch.cuda.device(mu.device):
         err = load("diversification").srgan_diversification_fwd(
-            mu.data_ptr(), target.data_ptr(), out.data_ptr(), B, D, bins,
+            mu.data_ptr(), target.data_ptr(), out.data_ptr(),
+            rows.data_ptr(), B, D, bins, plan(D),
             ctypes.c_float(n_batch_cfg), ctypes.c_float(vmin),
             ctypes.c_float(delta), ctypes.c_float(sigma),
-            ctypes.c_float(norm), smem,
+            ctypes.c_float(norm),
             torch.cuda.current_stream(mu.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"diversification kernel launch failed: "

@@ -119,25 +119,88 @@ def test_soft_histogram_wrapper_contract(data, case):
 # the fused diversification loss (Pallas row 4)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("oracle", ["pallas", "jnp"])
-def test_fused_diversification_values_and_gradient(data, oracle):
+# (B, D, bins) beside the module's (N, D, 50): batch 2, a ragged shape,
+# more dimensions than a cluster has blocks, and a batch of 2,048, above the
+# 1,476 the old one-block kernel's 48 KB of shared memory took
+DIV_SHAPES = ((2, 8, 50), (37, 3, 7), (128, 20, 50), (2048, 8, 50))
+DIV_CASES = [pytest.param(o, None, id=o) for o in ("pallas", "jnp")] + [
+    pytest.param(o, s, id=f"{o}-{s[0]}x{s[1]}x{s[2]}")
+    for s in DIV_SHAPES for o in ("pallas", "jnp")]
+
+
+@pytest.mark.parametrize("oracle, shape", DIV_CASES)
+def test_fused_diversification_values_and_gradient(data, oracle, shape):
     w = np.asarray([10.0, 100.0, 100.0], np.float32)
-    target = jnp.asarray(data.target)
+    if shape is None:
+        mu_np, target_np, n_cfg, bins = data.mu, data.target, 32, 50
+    else:
+        B, Dm, bins = shape
+        rng = np.random.default_rng(B * 1000 + Dm * 10 + bins)
+        mu_np = (rng.standard_normal((B, Dm)) * 1.3 + 0.2).astype(np.float32)
+        target_np = np.asarray(JL.histogram_target(jax.random.PRNGKey(0),
+                                                   bins))
+        n_cfg = B
+    target = jnp.asarray(target_np)
     if oracle == "pallas":
         def fn(m):
-            return jax_fused_diversification(m, target, 32)
+            return jax_fused_diversification(m, target, n_cfg, bins)
     else:
         def fn(m):
-            return _reference_jnp(m, target, 32, 50, -10.0, 10.0, 0.2)
-    mu = jnp.asarray(data.mu)
+            return _reference_jnp(m, target, n_cfg, bins, -10.0, 10.0, 0.2)
+    mu = jnp.asarray(mu_np)
     want = fn(mu)
     want_grad = jax.grad(lambda m: jnp.sum(fn(m) * w))(mu)
 
-    mu_t = _t(data.mu, grad=True)
-    got = diversification.fused_diversification(mu_t, _t(data.target), 32)
+    mu_t = _t(mu_np, grad=True)
+    got = diversification.fused_diversification(mu_t, _t(target_np), n_cfg,
+                                                bins)
     (got * _t(w)).sum().backward()
     _close(got, want)
     _close(mu_t.grad, want_grad)
+
+
+BAD_DIV_INPUTS = {
+    "float64": lambda mu, t: (mu.double(), t),
+    "non_contiguous": lambda mu, t: (mu.T.contiguous().T, t),
+    "batch_1": lambda mu, t: (mu[:1], t),
+    "dim_1": lambda mu, t: (mu[:, :1].contiguous(), t),
+    # D * D pair indexes past 2^31
+    "dim_46341": lambda mu, t: (torch.zeros((2, 46341)), t),
+    "target_length": lambda mu, t: (mu, t[:-1].contiguous()),
+    "target_device": lambda mu, t: (mu, t.to("meta")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_DIV_INPUTS) + ["cpu_is_plain"])
+def test_fused_diversification_wrapper_contract(data, case):
+    """The wrapper refuses what the kernel does not take, with ValueError,
+    and on a CPU tensor returns the plain twin's bits without counting a
+    launch."""
+    mu, target = _t(data.mu), _t(data.target)
+    before = diversification.LAUNCHES
+    if case == "cpu_is_plain":
+        want = diversification.diversification_plain(mu, target, 32)
+        assert torch.equal(
+            diversification.diversification_fwd(mu, target, 32), want)
+        got = diversification.fused_diversification(mu, target, 32)
+        assert torch.equal(got, want)
+        assert diversification.LAUNCHES == before
+        return
+    with pytest.raises(ValueError):
+        diversification.diversification_fwd(
+            *BAD_DIV_INPUTS[case](mu, target), 32)
+    assert diversification.LAUNCHES == before
+
+
+@pytest.mark.parametrize("Dm", [2, 3, 7, 8, 9, 20, 600])
+def test_fused_diversification_plan(Dm):
+    """K is 1 to 8 blocks and at most D, so that every block owns a column
+    and the blocks' columns d = r, r + K, ... cover every dimension once."""
+    K = diversification.plan(Dm)
+    assert 1 <= K <= diversification.MAX_CLUSTER and K <= Dm
+    cols = [d for r in range(K) for d in range(r, Dm, K)]
+    assert sorted(cols) == list(range(Dm))
+    assert all(len(range(r, Dm, K)) >= 1 for r in range(K))
 
 
 # ---------------------------------------------------------------------------
