@@ -49,17 +49,30 @@ from the root of a checkout; no install step, no argument.  Phases:
      the small kernels also beside an empty launch timed the same way
      (floor_ms) and at batch 4,096, the fused diversification kernel also
      at batch 2, and its backward (autograd of the plain composition) with
-     its device operations counted.
+     its device operations counted;
+ 10. the training loop, ``train_gan``, at the full width of 05_srgan_full in
+     bf16 (batch 128, k = 5, frozen encoder trunk loaded from a classifier
+     .pth of a seeded random encoder) on a synthetic fixture of 272 images
+     (256 train: two steps an epoch), 2 epochs and a resume to a third,
+     with the decoder the host's probes allow (the native one where libpng
+     and libjpeg build, else PIL, chosen by name): config.json, every
+     logged value finite, the step column rising across the resume,
+     checkpoints step_1-3, a resume with a changed config refused, the
+     kernels' launches per step as derived; the host's wait on each batch
+     and the step's device time, and the DataLoader alone in img/s.
 
-Without CUDA it raises before printing a result.  It starts no server and
-no thread; its only subprocesses are nvidia-smi and nvcc, both with a
-timeout.  Before the last line it prints the `kernels`, `training` and
-`serving` JSON lines; the last line is {"ok": true, "device": {...}}.
+Without CUDA it raises before printing a result.  It starts no server; its
+subprocesses are nvidia-smi, nvcc and g++ (the host probes and the native
+decoder's build), each with a timeout, and its threads are the loader's
+workers, joined at the end of each epoch.  Before the last line it prints
+the `kernels`, `training`, `serving` and `loop` JSON lines; the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import itertools
 import json
 import math
@@ -91,7 +104,12 @@ from srgan_tpu_torch.serving import (  # noqa: E402
     encode_npz,
     handle_request,
 )
-from srgan_tpu_torch.training import gan  # noqa: E402
+from srgan_tpu_torch.data import (  # noqa: E402
+    DataLoader,
+    make_synthetic_celeba,
+    native,
+)
+from srgan_tpu_torch.training import gan, loop  # noqa: E402
 
 PRESET = "05_srgan_full"
 DEV = "cuda"
@@ -1322,6 +1340,202 @@ def time_small_kernels(cfg, cgen):
     return tot
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the data feed and the training loop
+# ---------------------------------------------------------------------------
+
+# images a class of the synthetic fixture: with test_num 4, 64 a class train,
+# 256 in all, two steps of 128 an epoch
+LOOP_PER_CLASS = 68
+LOOP_TEST_NUM = 4
+LOOP_EPOCHS = 2            # then a resume to LOOP_EPOCHS + 1
+FEED_EPOCHS = 3            # epochs of the loader timed alone
+FEED_WORKERS = 8
+
+
+def probe_host():
+    """What this host offers the data feed: PIL, the libpng and libjpeg
+    headers, a link against both, and whether the native decoder builds."""
+    def runs(cmd, stdin=None) -> bool:
+        try:
+            return subprocess.run(cmd, input=stdin, capture_output=True,
+                                  text=True, timeout=120).returncode == 0
+        except (OSError, subprocess.TimeoutExpired):
+            return False
+
+    found = {"cpu_count": os.cpu_count(),
+             "PIL": importlib.util.find_spec("PIL") is not None}
+    for header in ("png.h", "jpeglib.h"):
+        found[header] = runs([native.CXX, "-E", "-x", "c++", "-"],
+                             f"#include <{header}>\n")
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "probe.cc")
+        with open(src, "w") as f:
+            f.write("int main() { return 0; }\n")
+        found["link_png_jpeg"] = runs([native.CXX, src, "-o",
+                                       os.path.join(d, "probe"), "-lpng",
+                                       "-ljpeg"])
+    found["native_decoder"] = native.available()
+    if not found["native_decoder"]:
+        err = native.build_error()
+        found["native_build_error"] = next(
+            (line.strip() for line in err.splitlines() if "error" in line),
+            err.strip())[:300]
+    return found
+
+
+class LoopProbe:
+    """Wraps the loop's device feed and the trainer's step while it is
+    entered: the host seconds each ``next`` of the feed takes (the step
+    waiting on its batch) and CUDA events around each step."""
+
+    def __init__(self):
+        self.waits, self.events = [], []
+
+    def __enter__(self):
+        self.feed, self.step = loop.prefetch_to_device, gan.GANTrainer.step
+        feed, step = self.feed, self.step
+
+        def timed_feed(iterator, device, size=2):
+            it = feed(iterator, device, size)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    return
+                self.waits.append(time.perf_counter() - t0)
+                yield batch
+
+        def timed_step(trainer, state, batch, epoch=0):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(trainer, state, batch, epoch)
+            end.record()
+            self.events.append((start, end))
+            return metrics
+
+        loop.prefetch_to_device, gan.GANTrainer.step = timed_feed, timed_step
+        return self
+
+    def __exit__(self, *exc):
+        loop.prefetch_to_device, gan.GANTrainer.step = self.feed, self.step
+
+    def device_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def loader_img_s(ds, batch, decode, workers):
+    """Images a second of the DataLoader alone over FEED_EPOCHS epochs."""
+    dl = DataLoader(ds, batch_size=batch, num_workers=workers, seed=0,
+                    decode=decode)
+    t0 = time.perf_counter()
+    n = sum(len(b["source_label"]) for _ in range(FEED_EPOCHS) for b in dl)
+    return n / (time.perf_counter() - t0)
+
+
+def loop_phase(cfg, g_per, e_per, bf16_img_s, name, power_limit):
+    """Phase 10.  Returns the `loop` record and the launches of the run."""
+    lcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype="bfloat16", test_num=LOOP_TEST_NUM))
+    B = lcfg.train.batch_size
+    say(f"== phase 10: train_gan of {PRESET} at full width, bf16, batch "
+        f"{B}, k = {lcfg.train.unrolled_k}, on a synthetic fixture of "
+        f"{4 * LOOP_PER_CLASS} images, {LOOP_EPOCHS} epochs, then a resume "
+        "to one more")
+    probes = probe_host()
+    say(f"host probes: {json.dumps(probes)}")
+    if probes["native_decoder"]:
+        decode = "native"
+    else:
+        check(probes["PIL"], "neither the native decoder nor PIL: the data "
+              "feed cannot decode on this host")
+        decode = "pil"
+    say(f"decode: {decode!r}, chosen by name from the probes")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        img_root, attr_file = make_synthetic_celeba(
+            os.path.join(tmp, "data"), n_per_class=LOOP_PER_CLASS)
+        fixture_s = time.perf_counter() - t0
+        # a classifier: the trunk and fcclass of a seeded random encoder
+        clf = os.path.join(tmp, "classifier.pth")
+        E = gan.build_encoder(lcfg, "cpu", torch.Generator().manual_seed(7))
+        torch.save({k: v for k, v in E.state_dict().items()
+                    if not k.startswith(("fcmean.", "fcvar."))}, clf)
+        out = os.path.join(tmp, "run")
+        run = dict(data_root=img_root, attr_file=attr_file,
+                   classifier_ckpt=clf, sample_grids=False,
+                   checkpoint_every=1, echo=False, device=DEV,
+                   decode=decode)
+        t0 = time.perf_counter()
+        with LoopProbe() as probe:
+            reset_counts()
+            loop.train_gan(lcfg, out, epochs=LOOP_EPOCHS, **run)
+            _, state = loop.train_gan(lcfg, out, epochs=LOOP_EPOCHS + 1,
+                                      resume=True, **run)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        loop_s = time.perf_counter() - t0
+        device_ms = probe.device_ms()
+        check(os.path.exists(os.path.join(out, "config.json")),
+              "no config.json")
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        n_steps = len(device_ms)
+        check(n_steps == 2 * (LOOP_EPOCHS + 1) == state.step,
+              f"{n_steps} steps, state step {state.step}")
+        check([r["step"] for r in records] == list(range(1, n_steps + 1)),
+              f"step column {[r['step'] for r in records]}")
+        check(all(math.isfinite(v) for r in records for v in r.values()
+                  if isinstance(v, float)), "a logged value is not finite")
+        ckpts = sorted(os.listdir(os.path.join(out, "ckpt")))
+        check(ckpts == [f"step_{i}" for i in range(1, LOOP_EPOCHS + 2)],
+              f"checkpoints {ckpts}")
+        changed = dataclasses.replace(lcfg, name="changed")
+        try:
+            loop.train_gan(changed, out, epochs=LOOP_EPOCHS + 2, resume=True,
+                           **run)
+            refused = False
+        except ValueError as e:
+            refused = "different config" in str(e)
+        check(refused, "a resume with a changed config did not refuse")
+        per_step = expected_counts(lcfg, g_per, e_per, fused=False)
+        want = {k: v * n_steps for k, v in per_step.items()}
+        check(counts == want, f"launches {counts}, derived {want}")
+
+        train_ds, _ = loop.build_datasets(lcfg, img_root, attr_file)
+        feed = {}
+        for workers in sorted({FEED_WORKERS, os.cpu_count() or 1}):
+            feed[str(workers)] = loader_img_s(train_ds, B, decode, workers)
+    per_epoch = [r["images_per_sec"] for r in records[1::2]]
+    steady = device_ms[1:LOOP_EPOCHS * 2] + device_ms[LOOP_EPOCHS * 2 + 1:]
+    record = dict(
+        preset=PRESET, compute_dtype="bfloat16", batch=B,
+        unrolled_k=lcfg.train.unrolled_k, images=len(train_ds),
+        steps=n_steps, decode=decode, probes=probes,
+        card=name, power_limit=power_limit, cpu_count=os.cpu_count(),
+        fixture_s=fixture_s, loop_s=loop_s,
+        loader_img_s_by_workers=feed,
+        wait_s_per_step=probe.waits,
+        wait_s_mean=sum(probe.waits) / len(probe.waits),
+        step_device_ms=device_ms,
+        step_device_ms_steady_mean=sum(steady) / len(steady),
+        loop_img_s_by_epoch=per_epoch,
+        bf16_step_img_s_phase8=bf16_img_s,
+        launches=counts, launches_per_step=per_step,
+        metrics_last=records[-1])
+    say(f"loop: {n_steps} steps in {loop_s:.1f} s; host wait per step "
+        + ", ".join(f"{1e3 * w:.1f}" for w in probe.waits)
+        + " ms; device ms per step "
+        + ", ".join(f"{m:.1f}" for m in device_ms)
+        + f"; img/s by epoch {', '.join(f'{v:.1f}' for v in per_epoch)} "
+        f"against phase 8c's {bf16_img_s:.1f}; the loader alone "
+        + ", ".join(f"{v:.1f} img/s on {w} workers" for w, v in feed.items())
+        + f"; launches {counts}")
+    return record, counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -1361,6 +1575,8 @@ def main():
     training, launches, fused_launches = training_phase(
         cfg, g_per, e_per, name, power_limit)
     tot = time_training_kernels(cfg, shapes, cgen, name, power_limit)
+    loop_record, loop_launches = loop_phase(
+        cfg, g_per, e_per, training["bf16"]["img_s"], name, power_limit)
 
     entries = []
     for kn, meta in KERNELS.items():
@@ -1368,6 +1584,8 @@ def main():
         n = fused_launches[kn] if kn == "diversification_fwd" \
             else launches[kn]
         check(n > 0, f"{kn} was not launched on its path")
+        check(kn == "diversification_fwd" or loop_launches[kn] > 0,
+              f"{kn} was not launched by the training loop")
         entry = dict(
             name=kn, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=n,
@@ -1386,6 +1604,7 @@ def main():
             entry["dg_db_rel_err_vs_float64"] = dgdb["kernel"]
         if kn == "cbinorm_fwd":
             entry["launches_serving"] = serving["launches"]
+        entry["launches_loop"] = loop_launches[kn]
         if kn == "cbinorm_bwd":
             entry["library"] = ("torch.autograd.grad through "
                                 "F.instance_norm")
@@ -1412,6 +1631,7 @@ def main():
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"training": training}))
     say(json.dumps({"serving": serving}))
+    say(json.dumps({"loop": loop_record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,7 @@
-"""Experiment configuration: the port's own copy of what serving reads from
-``srgan_tpu/configs.py`` (same field names and defaults), so that a run's
-``config.json`` parses and the serving presets resolve without JAX."""
+"""Experiment configuration: the port's own copy of ``srgan_tpu/configs.py``
+for the presets it trains and serves (same field names and defaults), so
+that a run's ``config.json`` is the same file for both packages and the
+presets resolve without JAX."""
 
 from __future__ import annotations
 
@@ -115,6 +116,10 @@ def srgan_full() -> ExperimentConfig:
     )
 
 
+def config_to_dict(cfg: ExperimentConfig) -> dict:
+    return dataclasses.asdict(cfg)
+
+
 def config_from_dict(d: dict) -> ExperimentConfig:
     return ExperimentConfig(
         name=d["name"],
@@ -124,6 +129,17 @@ def config_from_dict(d: dict) -> ExperimentConfig:
         trainer=d.get("trainer", "srgan"),
         pretrained_encoder=d.get("pretrained_encoder", False),
     )
+
+
+def save_config(cfg: ExperimentConfig, out_dir: str) -> str:
+    """Write ``out_dir/config.json``, the record a run's later commands
+    rebuild the model from (``srgan_tpu/configs.py:237-252``: the same
+    file)."""
+    path = os.path.join(out_dir, "config.json")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(config_to_dict(cfg), f, indent=1)
+    return path
 
 
 def load_config_for_ckpt(ckpt_path: str, preset: str | None = None
@@ -148,10 +164,26 @@ def load_config_for_ckpt(ckpt_path: str, preset: str | None = None
     return PRESETS[preset]()
 
 
-# the presets whose trainer (srgan, unconditional Encoder) the port serves
+# the presets whose trainer (srgan, unconditional Encoder) the port has
 PRESETS = {
     "03_srgan_nopretraining": srgan_nopretraining,
     "05_srgan_full": srgan_full,
     # the config srgan_full builds is named "05_srgan_pretrained"
     "05_srgan_pretrained": srgan_full,
 }
+
+
+def get_adjustable_parameters(notebook_no: int = 1):
+    """The reference's experiment registry (util_notebook.py:10-26) as a
+    pandas table; None for notebooks whose registry was None."""
+    import numpy as np
+    import pandas as pd
+
+    if notebook_no == 1:
+        models = [["conventionalKL", 1, 0],
+                  ["preposedKL", 1, 0],
+                  ["preposedKL", 5, 0.5]]
+        return pd.DataFrame(np.array(models),
+                            columns=["restriction_type", "unrolled_k",
+                                     "idt_reg"])
+    return None

@@ -61,10 +61,16 @@ def _nvcc() -> str:
                        "need the CUDA toolkit to build")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def hashed_library(name: str, src: Path, command: Iterable[str]) -> Path:
+    """``BUILD_DIR/lib<name>_<hash>.so``, the hash taken over the source and
+    the command that compiles it."""
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(command).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def _target(name: str) -> Path:
+    return hashed_library(name, CSRC / f"{name}.cu", NVCC_FLAGS)
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> float:

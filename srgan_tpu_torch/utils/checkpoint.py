@@ -1,4 +1,5 @@
-"""The weight carry-over from the JAX package's parameter trees to the port.
+"""Checkpoints of the port, and the weight carry-over from the JAX
+package's parameter trees.
 
 Counterpart of the torch export in ``srgan_tpu/utils/checkpoint.py:339-489``:
 the same key layout (the reference's ``SingleGenerator``, ``Encoder`` and
@@ -6,11 +7,22 @@ the same key layout (the reference's ``SingleGenerator``, ``Encoder`` and
 nested dicts of numpy arrays, so the port needs no JAX to read them.
 ``load_state_dict_file`` reads the ``generator.pth`` / ``encoder.pth`` that
 ``scripts/export_torch_checkpoint.py`` writes.
+
+``save_checkpoint`` / ``restore_checkpoint`` keep a training state under
+``<path>/step_N/`` (the JAX package's layout of its orbax directories,
+``srgan_tpu/utils/checkpoint.py:68-108``): G, D and E as ``generator.pth``,
+``discriminator.pth`` and ``encoder.pth`` in the reference key layout, and
+the three Adam state dicts, the step and the histogram target in
+``train_state.pth``.  The orbax format is the JAX package's and is not read
+here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import os
+import re
+import shutil
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -122,3 +134,71 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     """Read a ``.pth`` state dict onto the CPU; tensors only, no pickled
     code."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+NET_FILES = (("G", "generator.pth"), ("D", "discriminator.pth"),
+             ("E", "encoder.pth"))
+TRAIN_STATE_FILE = "train_state.pth"
+_STEP_DIR = re.compile(r"step_(\d+)")
+
+
+def latest_step(path: str) -> Optional[int]:
+    """The largest N of the ``step_N`` directories under ``path``, or None."""
+    if not os.path.isdir(path):
+        return None
+    steps = [int(m.group(1)) for m in map(_STEP_DIR.fullmatch,
+                                          os.listdir(path)) if m]
+    return max(steps) if steps else None
+
+
+def save_checkpoint(path: str, state, step: int) -> str:
+    """Write ``state`` (a ``GANTrainState``) to ``<path>/step_<step>/``,
+    replacing one that is there; returns the directory.  The files are
+    written into a temporary directory that is then renamed, so a reader
+    never sees half a checkpoint."""
+    final = os.path.join(path, f"step_{int(step)}")
+    tmp = f"{final}.tmp{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    for attr, name in NET_FILES:
+        torch.save(getattr(state, attr).state_dict(), os.path.join(tmp, name))
+    hist = state.hist_target
+    torch.save(dict(opt_g=state.opt_g.state_dict(),
+                    opt_d=state.opt_d.state_dict(),
+                    opt_e=state.opt_e.state_dict(),
+                    step=int(state.step),
+                    hist_target=None if hist is None else hist.cpu()),
+               os.path.join(tmp, TRAIN_STATE_FILE))
+    if os.path.isdir(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    return final
+
+
+def restore_checkpoint(path: str, state, step: Optional[int] = None):
+    """Load ``<path>/step_<step>/`` (default: the latest) into ``state`` in
+    place and return it.  The nets load with ``strict=True``; the encoder's
+    optimizer must hold the same parameters as when it was saved (the frozen
+    trunk stays frozen: loading sets no ``requires_grad``)."""
+    if step is None:
+        step = latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"no step_N checkpoint under {path}")
+    ckpt = os.path.join(path, f"step_{int(step)}")
+    for attr, name in NET_FILES:
+        getattr(state, attr).load_state_dict(
+            load_state_dict_file(os.path.join(ckpt, name)))
+    saved = torch.load(os.path.join(ckpt, TRAIN_STATE_FILE),
+                       map_location="cpu", weights_only=True)
+    state.opt_g.load_state_dict(saved["opt_g"])
+    state.opt_d.load_state_dict(saved["opt_d"])
+    state.opt_e.load_state_dict(saved["opt_e"])
+    state.step = int(saved["step"])
+    hist = saved["hist_target"]
+    if (hist is None) != (state.hist_target is None):
+        raise ValueError(f"{ckpt}: the histogram target is "
+                         f"{'absent' if hist is None else 'present'}, the "
+                         "state's is not: another loss configuration")
+    if hist is not None:
+        state.hist_target = hist.to(state.hist_target.device)
+    return state

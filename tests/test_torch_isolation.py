@@ -1,5 +1,6 @@
-"""The port stands alone: it imports nothing of JAX or srgan_tpu, ships no
-binary, and never carries on on the CPU when CUDA is asked for."""
+"""The port stands alone: it imports nothing of JAX or srgan_tpu (nor PIL
+when a module is imported), ships no binary, and never carries on on the
+CPU when CUDA is asked for."""
 
 import os
 import subprocess
@@ -22,11 +23,21 @@ spec = importlib.util.spec_from_file_location("chip_smoke",
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "srgan_tpu", "triton"))
-n = len([m for m in sys.modules if m.startswith("srgan_tpu_torch")])
-print("IMPORTED", n)
+                                    "srgan_tpu", "triton", "PIL"))
+ported = sorted(m for m in sys.modules if m.startswith("srgan_tpu_torch"))
+print("IMPORTED", len(ported))
+print("MODULES", " ".join(ported))
 print("BAD", bad)
 """
+
+# the modules of the data feed, the loop and the CLI, which import no PIL
+# either (the card's host may lack it; it is imported where it is used)
+FEED = ("srgan_tpu_torch.data", "srgan_tpu_torch.data.attributes",
+        "srgan_tpu_torch.data.dataset", "srgan_tpu_torch.data.loader",
+        "srgan_tpu_torch.data.native", "srgan_tpu_torch.data.sampling",
+        "srgan_tpu_torch.data.synthetic", "srgan_tpu_torch.ops.image",
+        "srgan_tpu_torch.training.loop", "srgan_tpu_torch.train",
+        "srgan_tpu_torch.utils.metrics")
 
 
 def test_port_and_chip_smoke_import_no_jax_or_srgan_tpu():
@@ -37,7 +48,9 @@ def test_port_and_chip_smoke_import_no_jax_or_srgan_tpu():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 17, r.stdout
+    assert n >= 28, r.stdout
+    modules = r.stdout.split("MODULES")[1].split("\n")[0].split()
+    assert set(FEED) <= set(modules), sorted(set(FEED) - set(modules))
 
 
 def test_port_files_are_small_text():
