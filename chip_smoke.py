@@ -59,14 +59,37 @@ from the root of a checkout; no install step, no argument.  Phases:
      logged value finite, the step column rising across the resume,
      checkpoints step_1-3, a resume with a changed config refused, the
      kernels' launches per step as derived; the host's wait on each batch
-     and the step's device time, and the DataLoader alone in img/s.
+     and the step's device time, and the DataLoader alone in img/s;
+ 11. encoder-classifier pretraining at the full width of 05_srgan_full's
+     encoder (128 px, e_nch 64, e_num_cls 4), batch 512 (ClassifierConfig),
+     fp32: 1 warm and 3 timed ClassifierTrainer steps, the norm launches of
+     a step (8 forward, 8 backward) and of an evaluation batch as derived,
+     one step's gradients through the kernels against the plain norm; then
+     ``python -m srgan_tpu_torch.pretrain_classifier --synthetic`` (in
+     process) on 160 images, 4 epochs of 2 steps of 64, its launches as
+     derived, and its classifier_best.pth loaded into the 05_srgan_full
+     encoder through load_pretrained_encoder, the trunk bit-equal;
+ 12. VGG19-BN at 224 px, batch 32: features on the card against the same
+     weights on the CPU, their time; 1 warm and 3 timed fine-tune steps;
+     ``finetune_vgg --synthetic`` (2 steps of 32) from torchvision's init
+     and from a seeded random torchvision-layout .pth (--imagenet-pth);
+ 13. ``evaluate_prdc`` on phase 10's checkpoint with vgg-initialization
+     and phase 12's vgg-CelebA, all 16 (source, target) pairs, 32 samples
+     a pair, nearest_k 5: every metric finite and in range, the norm
+     launches of each translate as derived (one G forward), a set against
+     itself at precision = coverage = 1 exactly, a set of duplicated
+     features at k = 1 at all four metrics exactly 0 (the exact distances);
+     the harness's preprocess, feature and PRDC times.
+
+Each entry point of phases 11-13 runs with TF32 turned on before it and
+must turn it off itself (``resolve_device``), as it does for its users.
 
 Without CUDA it raises before printing a result.  It starts no server; its
 subprocesses are nvidia-smi, nvcc and g++ (the host probes and the native
 decoder's build), each with a timeout, and its threads are the loader's
 workers, joined at the end of each epoch.  Before the last line it prints
-the `kernels`, `training`, `serving` and `loop` JSON lines; the last line
-is {"ok": true, "device": {...}}.
+the `kernels`, `training`, `serving`, `loop`, `classifier`, `vgg` and
+`evaluation` JSON lines; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -106,6 +129,7 @@ from srgan_tpu_torch.serving import (  # noqa: E402
 )
 from srgan_tpu_torch.data import (  # noqa: E402
     DataLoader,
+    FaceDataset,
     make_synthetic_celeba,
     native,
 )
@@ -971,26 +995,29 @@ def fresh(cfg):
 TRANSPOSE_RE = re.compile(r"nchwToNhwc|nhwcToNchw", re.I)
 CONV_RE = re.compile(r"conv|cudnn|xmma|gemm|implicit|dgrad|wgrad|fprop|"
                      r"cutlass", re.I)
+# batch norm (VGG19-BN), ATen's kernels and cuDNN's
+BATCH_NORM_RE = re.compile(r"batch_norm|bn_fw|bn_bw", re.I)
 
 
-def profile_step(trainer, state, batch):
-    """One step under torch.profiler: device ms by kernel group (the norm
-    kernels, the histogram and diversification kernels, cuDNN's layout
-    transposes, convolutions and matrix products, the rest) and the 12
-    kernels that take longest.  ``recorded`` is False where the trace holds
-    no device time.  The kernels' sum can exceed the step's wall time where
-    cuDNN runs kernels side by side."""
+def profile_step(step):
+    """One call of ``step`` under torch.profiler: device ms by kernel group
+    (the norm kernels, the histogram and diversification kernels, batch
+    norm, cuDNN's layout transposes, convolutions and matrix products, the
+    rest) and the 12 kernels that take longest.  ``recorded`` is False
+    where the trace holds no device time.  The kernels' sum can exceed the
+    step's wall time where cuDNN runs kernels side by side."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.step(state, batch)
+        step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     groups = dict.fromkeys(("norm", "histogram_diversification",
-                            "layout_transpose", "conv_matmul", "rest"), 0.0)
+                            "batch_norm", "layout_transpose", "conv_matmul",
+                            "rest"), 0.0)
     kernels = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1001,6 +1028,8 @@ def profile_step(trainer, state, batch):
             groups["norm"] += ms
         elif "histogram" in e.key or "diversification" in e.key:
             groups["histogram_diversification"] += ms
+        elif BATCH_NORM_RE.search(e.key):
+            groups["batch_norm"] += ms
         elif TRANSPOSE_RE.search(e.key):
             groups["layout_transpose"] += ms
         elif CONV_RE.search(e.key):
@@ -1057,7 +1086,7 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
                           host_ms=host_ms))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say("== phase 8a: one more fp32 step under torch.profiler")
-    prof_fp32 = profile_step(trainer, state, batches[-1])
+    prof_fp32 = profile_step(lambda: trainer.step(state, batches[-1]))
     say_profile("one fp32 step", prof_fp32)
     del trainer, state
     torch.cuda.empty_cache()
@@ -1103,7 +1132,7 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
         bf16.append(dict(metrics=metrics, device_ms=dev_ms,
                          host_ms=host_ms))
     bf16_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof_bf16 = profile_step(trainer, state, batches[2])
+    prof_bf16 = profile_step(lambda: trainer.step(state, batches[2]))
     say_profile("one bf16 step", prof_bf16)
     del trainer, state
     torch.cuda.empty_cache()
@@ -1435,8 +1464,10 @@ def loader_img_s(ds, batch, decode, workers):
     return n / (time.perf_counter() - t0)
 
 
-def loop_phase(cfg, g_per, e_per, bf16_img_s, name, power_limit):
-    """Phase 10.  Returns the `loop` record and the launches of the run."""
+def loop_phase(cfg, g_per, e_per, bf16_img_s, name, power_limit, tmp):
+    """Phase 10, in the directory ``tmp``.  Returns the `loop` record, the
+    launches of the run, and the run directory and the fixture (image root,
+    attribute file) for phase 13."""
     lcfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, compute_dtype="bfloat16", test_num=LOOP_TEST_NUM))
     B = lcfg.train.batch_size
@@ -1453,61 +1484,60 @@ def loop_phase(cfg, g_per, e_per, bf16_img_s, name, power_limit):
               "feed cannot decode on this host")
         decode = "pil"
     say(f"decode: {decode!r}, chosen by name from the probes")
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        img_root, attr_file = make_synthetic_celeba(
-            os.path.join(tmp, "data"), n_per_class=LOOP_PER_CLASS)
-        fixture_s = time.perf_counter() - t0
-        # a classifier: the trunk and fcclass of a seeded random encoder
-        clf = os.path.join(tmp, "classifier.pth")
-        E = gan.build_encoder(lcfg, "cpu", torch.Generator().manual_seed(7))
-        torch.save({k: v for k, v in E.state_dict().items()
-                    if not k.startswith(("fcmean.", "fcvar."))}, clf)
-        out = os.path.join(tmp, "run")
-        run = dict(data_root=img_root, attr_file=attr_file,
-                   classifier_ckpt=clf, sample_grids=False,
-                   checkpoint_every=1, echo=False, device=DEV,
-                   decode=decode)
-        t0 = time.perf_counter()
-        with LoopProbe() as probe:
-            reset_counts()
-            loop.train_gan(lcfg, out, epochs=LOOP_EPOCHS, **run)
-            _, state = loop.train_gan(lcfg, out, epochs=LOOP_EPOCHS + 1,
-                                      resume=True, **run)
-            torch.cuda.synchronize()
-            counts = read_counts()
-        loop_s = time.perf_counter() - t0
-        device_ms = probe.device_ms()
-        check(os.path.exists(os.path.join(out, "config.json")),
-              "no config.json")
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
-        n_steps = len(device_ms)
-        check(n_steps == 2 * (LOOP_EPOCHS + 1) == state.step,
-              f"{n_steps} steps, state step {state.step}")
-        check([r["step"] for r in records] == list(range(1, n_steps + 1)),
-              f"step column {[r['step'] for r in records]}")
-        check(all(math.isfinite(v) for r in records for v in r.values()
-                  if isinstance(v, float)), "a logged value is not finite")
-        ckpts = sorted(os.listdir(os.path.join(out, "ckpt")))
-        check(ckpts == [f"step_{i}" for i in range(1, LOOP_EPOCHS + 2)],
-              f"checkpoints {ckpts}")
-        changed = dataclasses.replace(lcfg, name="changed")
-        try:
-            loop.train_gan(changed, out, epochs=LOOP_EPOCHS + 2, resume=True,
-                           **run)
-            refused = False
-        except ValueError as e:
-            refused = "different config" in str(e)
-        check(refused, "a resume with a changed config did not refuse")
-        per_step = expected_counts(lcfg, g_per, e_per, fused=False)
-        want = {k: v * n_steps for k, v in per_step.items()}
-        check(counts == want, f"launches {counts}, derived {want}")
+    t0 = time.perf_counter()
+    img_root, attr_file = make_synthetic_celeba(
+        os.path.join(tmp, "data"), n_per_class=LOOP_PER_CLASS)
+    fixture_s = time.perf_counter() - t0
+    # a classifier: the trunk and fcclass of a seeded random encoder
+    clf = os.path.join(tmp, "classifier.pth")
+    E = gan.build_encoder(lcfg, "cpu", torch.Generator().manual_seed(7))
+    torch.save({k: v for k, v in E.state_dict().items()
+                if not k.startswith(("fcmean.", "fcvar."))}, clf)
+    out = os.path.join(tmp, "run")
+    run = dict(data_root=img_root, attr_file=attr_file,
+               classifier_ckpt=clf, sample_grids=False,
+               checkpoint_every=1, echo=False, device=DEV,
+               decode=decode)
+    t0 = time.perf_counter()
+    with LoopProbe() as probe:
+        reset_counts()
+        loop.train_gan(lcfg, out, epochs=LOOP_EPOCHS, **run)
+        _, state = loop.train_gan(lcfg, out, epochs=LOOP_EPOCHS + 1,
+                                  resume=True, **run)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    loop_s = time.perf_counter() - t0
+    device_ms = probe.device_ms()
+    check(os.path.exists(os.path.join(out, "config.json")),
+          "no config.json")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    n_steps = len(device_ms)
+    check(n_steps == 2 * (LOOP_EPOCHS + 1) == state.step,
+          f"{n_steps} steps, state step {state.step}")
+    check([r["step"] for r in records] == list(range(1, n_steps + 1)),
+          f"step column {[r['step'] for r in records]}")
+    check(all(math.isfinite(v) for r in records for v in r.values()
+              if isinstance(v, float)), "a logged value is not finite")
+    ckpts = sorted(os.listdir(os.path.join(out, "ckpt")))
+    check(ckpts == [f"step_{i}" for i in range(1, LOOP_EPOCHS + 2)],
+          f"checkpoints {ckpts}")
+    changed = dataclasses.replace(lcfg, name="changed")
+    try:
+        loop.train_gan(changed, out, epochs=LOOP_EPOCHS + 2, resume=True,
+                       **run)
+        refused = False
+    except ValueError as e:
+        refused = "different config" in str(e)
+    check(refused, "a resume with a changed config did not refuse")
+    per_step = expected_counts(lcfg, g_per, e_per, fused=False)
+    want = {k: v * n_steps for k, v in per_step.items()}
+    check(counts == want, f"launches {counts}, derived {want}")
 
-        train_ds, _ = loop.build_datasets(lcfg, img_root, attr_file)
-        feed = {}
-        for workers in sorted({FEED_WORKERS, os.cpu_count() or 1}):
-            feed[str(workers)] = loader_img_s(train_ds, B, decode, workers)
+    train_ds, _ = loop.build_datasets(lcfg, img_root, attr_file)
+    feed = {}
+    for workers in sorted({FEED_WORKERS, os.cpu_count() or 1}):
+        feed[str(workers)] = loader_img_s(train_ds, B, decode, workers)
     per_epoch = [r["images_per_sec"] for r in records[1::2]]
     steady = device_ms[1:LOOP_EPOCHS * 2] + device_ms[LOOP_EPOCHS * 2 + 1:]
     record = dict(
@@ -1533,22 +1563,494 @@ def loop_phase(cfg, g_per, e_per, bf16_img_s, name, power_limit):
         f"against phase 8c's {bf16_img_s:.1f}; the loader alone "
         + ", ".join(f"{v:.1f} img/s on {w} workers" for w, v in feed.items())
         + f"; launches {counts}")
-    return record, counts
+    return record, counts, dict(run=out, data=(img_root, attr_file),
+                                decode=decode)
+
+
+# ---------------------------------------------------------------------------
+# phases 11-13: classifier pretraining, VGG19-BN and PRDC evaluation
+# ---------------------------------------------------------------------------
+
+# phase 11's pretrain_classifier run: 40 images a class, with val 4 and
+# test 4 a class 32 train: two steps of 64 an epoch, validation at epochs 0
+# and 3 (ClassifierConfig's test_interval), one test batch
+CLF_CLI = dict(per_class=40, train_num=32, val_num=4, test_num=4, batch=64,
+               epochs=4)
+# phase 12's finetune_vgg runs: of the fixture's 24 images a class, with
+# val 4 and test 4 a class 16 train: two steps of 32, one validation batch
+VGG_CLI = dict(train_num=16, val_num=4, batch=32, epochs=1)
+VGG_BATCH = 32
+# phase 13's evaluate_prdc run: 32 test images a class of phase 10's
+# fixture (68 a class), the reference's nearest_k
+EVAL_SAMPLES = 32
+EVAL_K = 5
+# VGG19-BN features on the card against the CPU, relative to the largest
+# entry: fp32 on both (TF32 off), but cuDNN's and the CPU's convolution
+# algorithms sum in other orders through 16 layers (3.2e-6 measured on an
+# H100; TF32 convolutions would be near 1e-3)
+VGG_TOL = 3e-5
+# the fine-tune's Adam moves a weight by at most about lr a step
+VGG_LR = 5e-5
+
+
+def forward_flops(model, x):
+    """FLOPs a sample of one forward of ``model`` on ``x``: 2 a
+    multiply-accumulate of every convolution and linear layer (the rest is
+    a few percent), from the layers' output shapes."""
+    total = 0
+
+    def count(mod, _, out):
+        nonlocal total
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.in_channels // mod.groups * math.prod(mod.kernel_size)
+        else:
+            k = mod.in_features
+        total += 2 * out.numel() * k
+
+    hooks = [mod.register_forward_hook(count) for mod in model.modules()
+             if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total / x.shape[0]
+
+
+def tf32_on():
+    return (torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul.allow_tf32)
+
+
+def run_cli(main, argv):
+    """An entry point's ``main(argv)`` in this process, with TF32 turned on
+    first: it must turn TF32 off itself, so that what is checked and timed
+    here is what its users get."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    main(argv)
+    check(not tf32_on(), f"{main.__module__} left TF32 on")
+
+
+def cli_arg_list(**kw):
+    return [x for k, v in kw.items()
+            for x in (f"--{k.replace('_', '-')}", str(v))]
+
+
+def classifier_counts(ccfg, steps, eval_batches):
+    """Norm launches of ``steps`` classifier train steps and
+    ``eval_batches`` evaluation batches: 2 instance norms a block, forward
+    in both, backward in a step (every norm's input needs a gradient: the
+    first block's is ``first_layer``'s output)."""
+    per = 2 * ccfg.model.e_num_cls
+    return {"cbinorm_fwd": per * (steps + eval_batches),
+            "cbinorm_bwd": per * steps, "soft_histogram_fwd": 0,
+            "soft_histogram_bwd": 0, "diversification_fwd": 0}
+
+
+def classifier_phase(cfg, work, decode, name, power_limit):
+    """Phase 11.  Returns the `classifier` record."""
+    from srgan_tpu_torch import pretrain_classifier
+    from srgan_tpu_torch.configs import ClassifierConfig
+    from srgan_tpu_torch.training.classifier import ClassifierTrainer
+
+    ccfg = ClassifierConfig(model=cfg.model)
+    m, B = ccfg.model, ccfg.batch_size
+    say(f"== phase 11: encoder-classifier pretraining at full width "
+        f"({m.image_size} px, e_nch {m.e_nch}, e_num_cls {m.e_num_cls}), "
+        f"batch {B}, fp32, random init from a seeded torch.Generator")
+    trainer = ClassifierTrainer(ccfg, DEV)
+    state = trainer.init_state(torch.Generator().manual_seed(11))
+    rng = np.random.default_rng(11)
+    batches = [(torch.from_numpy(rng.uniform(-1, 1, (
+        B, m.image_size, m.image_size, m.nch_in)).astype(np.float32)).to(DEV),
+        torch.from_numpy(rng.integers(0, m.n_classes, B)).to(DEV))
+        for _ in range(1 + TIMED_STEPS)]
+    per_step = classifier_counts(ccfg, 1, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i, (x, y) in enumerate(batches):
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = trainer.step(state, x, y, epoch=i)
+        end.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        ms = start.elapsed_time(end)
+        say(f"classifier step {i} ({'warm' if i == 0 else 'timed'}): device "
+            f"{ms:.2f} ms, launches {counts}, {json.dumps(metrics)}")
+        check(all(math.isfinite(v) for v in metrics.values()), metrics)
+        check(counts == per_step, f"launches {counts}, derived {per_step}")
+        steps.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reset_counts()
+    trainer.predict(state, batches[0][0])
+    per_eval = read_counts()
+    check(per_eval == classifier_counts(ccfg, 0, 1),
+          f"launches per evaluation batch {per_eval}")
+
+    # one step's gradients through the kernels against the plain norm (and
+    # the plain norm in float64), per tensor
+    x = batches[0][0].permute(0, 3, 1, 2).contiguous()
+    y = batches[0][1]
+    fwd_flops = forward_flops(state.model, x[:1])
+    model = state.model
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+
+    def grads():
+        loss = F.cross_entropy(model(x), y)
+        return torch.autograd.grad(loss, params)
+
+    with deterministic_cudnn():
+        got = grads()
+        with plain_norm():
+            want = grads()
+        real = norm.fused_cbinorm
+        norm.fused_cbinorm = plain64
+        try:
+            want64 = grads()
+        finally:
+            norm.fused_cbinorm = real
+    worst = {"plain": (0.0, ""), "float64": (0.0, ""),
+             "plain_vs_float64": (0.0, "")}
+    for n, a, b, r in zip(names, got, want, want64):
+        check(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0,
+              f"{n}: gradient through the kernels is zero or not finite")
+        for key, u, v in (("plain", a, b), ("float64", a, r),
+                          ("plain_vs_float64", b, r)):
+            worst[key] = max(worst[key], (float((u - v).norm() / v.norm()),
+                                          n))
+    say(f"classifier gradients at batch {B}, per-tensor ||a - b|| / ||b||, "
+        f"worst: kernels vs plain {worst['plain'][0]:.2e} "
+        f"({worst['plain'][1]}), kernels vs float64 norm "
+        f"{worst['float64'][0]:.2e} ({worst['float64'][1]}), plain vs "
+        f"float64 norm {worst['plain_vs_float64'][0]:.2e} "
+        f"({worst['plain_vs_float64'][1]}); tol {GRAD_TOL:g}")
+    check(worst["plain"][0] <= GRAD_TOL and worst["float64"][0] <= GRAD_TOL,
+          "classifier gradients through the kernels disagree")
+    prof = profile_step(lambda: trainer.step(state, *batches[-1]))
+    say_profile(f"one classifier step at batch {B}", prof)
+    del trainer, state, model, batches, x, got, want, want64
+    torch.cuda.empty_cache()
+
+    c = CLF_CLI
+    out = os.path.join(work, "clf")
+    argv = ["--synthetic", "--synthetic-per-class", str(c["per_class"]),
+            "--train-num", str(c["train_num"]), "--val-num",
+            str(c["val_num"]), "--test-num", str(c["test_num"]),
+            "--batch-size", str(c["batch"]), "--epochs", str(c["epochs"]),
+            "--image-size", str(m.image_size), "--e-nch", str(m.e_nch),
+            "--e-num-cls", str(m.e_num_cls), "--decode", decode,
+            "--device", DEV, "--out", out]
+    say("python -m srgan_tpu_torch.pretrain_classifier " + " ".join(argv))
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(pretrain_classifier.main, argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_counts = read_counts()
+    train_n = 4 * min(c["train_num"],
+                      c["per_class"] - c["val_num"] - c["test_num"])
+    n_steps = c["epochs"] * (train_n // c["batch"])
+    n_val = len(range(0, c["epochs"], ccfg.test_interval))
+    n_eval = n_val * -(-4 * c["val_num"] // c["batch"]) \
+        + -(-4 * c["test_num"] // c["batch"])
+    want_cli = classifier_counts(ccfg, n_steps, n_eval)
+    check(cli_counts == want_cli, f"launches {cli_counts}, derived "
+          f"{want_cli} ({n_steps} steps, {n_eval} evaluation batches)")
+    with open(os.path.join(out, "test_metrics.json")) as f:
+        test_metrics = json.load(f)
+    check(test_metrics["test_n"] == 4 * c["test_num"]
+          and np.asarray(test_metrics["confusion_matrix"]).shape == (4, 4),
+          test_metrics)
+    pth = os.path.join(out, "classifier_best.pth")
+    sd = torch.load(pth, map_location="cpu", weights_only=True)
+    E = gan.build_encoder(cfg, "cpu", torch.Generator().manual_seed(12))
+    loop.load_pretrained_encoder(pth, E)
+    esd = E.state_dict()
+    check(all(torch.equal(esd[k], v) for k, v in sd.items()),
+          "the encoder's trunk is not the classifier's bit for bit")
+    say(f"pretrain_classifier: {cli_s:.1f} s, {n_steps} steps of "
+        f"{c['batch']}, launches {cli_counts} (derived); test metrics "
+        f"{json.dumps(test_metrics)}; classifier_best.pth ({len(sd)} "
+        f"tensors) loaded into the {PRESET} encoder, trunk bit-equal")
+    timed = steps[1:]
+    mean_ms = sum(timed) / len(timed)
+    # a train step: the forward and about twice its FLOPs backward
+    step_tflop_s = 3 * fwd_flops * B / mean_ms / 1e9
+    say(f"classifier: {fwd_flops / 1e9:.3f} GFLOP a forward an image, "
+        f"{step_tflop_s:.1f} TFLOP/s a step "
+        f"({100 * step_tflop_s * 1e12 / PEAK_FP32_FLOP_S:.0f} % of the fp32 "
+        "peak)")
+    return dict(
+        batch=B, image_size=m.image_size, e_nch=m.e_nch,
+        e_num_cls=m.e_num_cls, dtype="float32", tf32=False, card=name,
+        power_limit=power_limit, warm_step_device_ms=steps[0],
+        step_device_ms=timed, step_device_ms_mean=mean_ms,
+        img_s=1e3 * B / mean_ms, peak_mem_gib=peak,
+        forward_gflop_per_image=fwd_flops / 1e9, step_tflop_s=step_tflop_s,
+        launches_per_step=per_step, launches_per_eval_batch=per_eval,
+        grad_rel_l2_worst={k: v[0] for k, v in worst.items()},
+        profile=prof, cli=dict(argv=argv, seconds=cli_s, steps=n_steps,
+                 eval_batches=n_eval, launches=cli_counts,
+                 test_metrics=test_metrics))
+
+
+def vgg_phase(work, decode, name, power_limit):
+    """Phase 12.  Returns the `vgg` record and the fine-tuned .pth."""
+    from srgan_tpu_torch import finetune_vgg
+    from srgan_tpu_torch.evaluation.features import (
+        init_vgg,
+        load_vgg,
+        vgg_feature_extractor,
+    )
+    from srgan_tpu_torch.training.vgg_finetune import VGGFinetuneTrainer
+
+    B = VGG_BATCH
+    say(f"== phase 12: VGG19-BN at 224 px, batch {B}, fp32, torchvision's "
+        "init from a seeded torch.Generator")
+    cpu = init_vgg(torch.Generator().manual_seed(12))
+    card = load_vgg(cpu.state_dict()).to(DEV)
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (B, 3, 224, 224)).astype(np.float32))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = cpu(x)
+    cpu_s = time.perf_counter() - t0
+    extract = vgg_feature_extractor(card)
+    xg = x.to(DEV)
+    got = extract(xg).cpu()
+    err = rel_err(got, want)
+    feat_ms = cuda_ms(lambda: extract(xg), iters=10)[0]
+    feat_prof = profile_step(lambda: extract(xg))
+    fwd_flops = forward_flops(card, xg[:1])
+    say(f"features at batch {B}: card vs CPU (the CPU took {cpu_s:.1f} s) "
+        f"{err:.2e} of the largest entry (tol {VGG_TOL:g}); card "
+        f"{feat_ms:.2f} ms a batch, {1e3 * B / feat_ms:.1f} img/s; "
+        f"{fwd_flops / 1e9:.3f} GFLOP an image, "
+        f"{fwd_flops * B / feat_ms / 1e9:.1f} TFLOP/s")
+    check(err <= VGG_TOL and bool(torch.isfinite(got).all()),
+          "VGG features on the card disagree with the CPU")
+    say_profile(f"one VGG feature batch of {B}", feat_prof)
+    del cpu, card, extract, xg
+
+    trainer = VGGFinetuneTrainer(device=DEV)
+    state = trainer.init_state(torch.Generator().manual_seed(13))
+    rng = np.random.default_rng(13)
+    xs = [torch.from_numpy(rng.standard_normal((B, 224, 224, 3)).astype(
+        np.float32)).to(DEV) for _ in range(1 + TIMED_STEPS)]
+    ys = torch.from_numpy(rng.integers(0, 4, B)).to(DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i, xb in enumerate(xs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = trainer.step(state, xb, ys, preprocessed=True)
+        end.record()
+        torch.cuda.synchronize()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        steps.append(start.elapsed_time(end))
+        check(all(math.isfinite(v) for v in metrics.values()), metrics)
+        say(f"fine-tune step {i} ({'warm' if i == 0 else 'timed'}): device "
+            f"{steps[-1]:.2f} ms, {json.dumps(metrics)}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_prof = profile_step(lambda: trainer.step(state, xs[-1], ys,
+                                                  preprocessed=True))
+    say_profile(f"one fine-tune step at batch {B}", step_prof)
+    del trainer, state, xs
+    torch.cuda.empty_cache()
+
+    c = VGG_CLI
+    common = ["--synthetic", "--train-num", str(c["train_num"]), "--val-num",
+              str(c["val_num"]), "--batch-size", str(c["batch"]),
+              "--epochs", str(c["epochs"]), "--val-every", "1",
+              "--decode", decode, "--device", DEV]
+    # --synthetic holds out 4 test images a class
+    train_n = 4 * min(c["train_num"], finetune_vgg.SYNTHETIC_PER_CLASS
+                      - c["val_num"] - 4)
+    n_steps = c["epochs"] * (train_n // c["batch"])
+    runs = {}
+    imagenet = os.path.join(work, "vgg19_bn_random.pth")
+    src = init_vgg(torch.Generator().manual_seed(14)).state_dict()
+    torch.save(src, imagenet)
+    for arm, extra in (("init", []), ("imagenet", ["--imagenet-pth",
+                                                   imagenet])):
+        out = os.path.join(work, f"vgg_{arm}")
+        argv = common + extra + ["--out", out]
+        say("python -m srgan_tpu_torch.finetune_vgg " + " ".join(argv))
+        t0 = time.perf_counter()
+        run_cli(finetune_vgg.main, argv)
+        torch.cuda.synchronize()
+        runs[arm] = dict(argv=argv, seconds=time.perf_counter() - t0)
+        sd = torch.load(os.path.join(out, "vgg_celeba_best.pth"),
+                        map_location="cpu", weights_only=True)
+        check(load_vgg(sd).num_classes == 4
+              and int(sd["features.1.num_batches_tracked"]) == n_steps,
+              f"{arm}: the written .pth is not a {n_steps}-step 4-way net")
+        if arm == "imagenet":
+            moved = max(float((sd[k] - v).abs().max()) for k, v in
+                        src.items() if v.is_floating_point()
+                        and not k.startswith("classifier.6.")
+                        and "running" not in k)
+            say(f"the --imagenet-pth run moved the file's weights by at "
+                f"most {moved:.2e} (bound {2.2 * n_steps * VGG_LR:.1e}: "
+                f"{n_steps} Adam steps at lr {VGG_LR:g})")
+            check(0 < moved <= 2.2 * n_steps * VGG_LR,
+                  "the fine-tune did not start from the --imagenet-pth")
+            runs[arm]["max_weight_move"] = moved
+        say(f"finetune_vgg ({arm}): {runs[arm]['seconds']:.1f} s, "
+            f"{n_steps} steps, vgg_celeba_best.pth written")
+    os.remove(imagenet)
+    timed = steps[1:]
+    mean_ms = sum(timed) / len(timed)
+    return dict(
+        batch=B, image_size=224, dtype="float32", tf32=False, card=name,
+        power_limit=power_limit, features_rel_err_vs_cpu=err,
+        feature_ms_batch=feat_ms, feature_img_s=1e3 * B / feat_ms,
+        forward_gflop_per_image=fwd_flops / 1e9,
+        feature_tflop_s=fwd_flops * B / feat_ms / 1e9,
+        feature_profile=feat_prof, finetune_profile=step_prof,
+        finetune_warm_step_device_ms=steps[0],
+        finetune_step_device_ms=timed, finetune_step_device_ms_mean=mean_ms,
+        finetune_img_s=1e3 * B / mean_ms, finetune_peak_mem_gib=peak,
+        cli=runs), os.path.join(work, "vgg_init", "vgg_celeba_best.pth")
+
+
+def evaluation_phase(g_per, loop_out, vgg_pth, work, name, power_limit):
+    """Phase 13.  Returns the `evaluation` record."""
+    import pickle
+
+    from srgan_tpu_torch import evaluate_prdc
+    from srgan_tpu_torch.evaluation import GANEvaluation, compute_prdc
+    from srgan_tpu_torch.evaluation.prdc import pairwise_distances
+    from srgan_tpu_torch.evaluation.harness import METRICS
+
+    say(f"== phase 13: evaluate_prdc on phase 10's checkpoint, "
+        f"vgg-initialization and phase 12's vgg-CelebA, all 16 pairs, "
+        f"{EVAL_SAMPLES} samples a pair, nearest_k {EVAL_K}")
+    img_root, attr_file = loop_out["data"]
+    pkl = os.path.join(work, "prdc.pkl")
+    fes = ["vgg-initialization", "vgg-CelebA"]
+    argv = ["--ckpt", os.path.join(loop_out["run"], "ckpt"), "--data-root",
+            img_root, "--attr-file", attr_file, "--feature-extractors", *fes,
+            "--vgg-celeba-ckpt", vgg_pth, "--num-samples", str(EVAL_SAMPLES),
+            "--test-num", str(EVAL_SAMPLES), "--nearest-k", str(EVAL_K),
+            "--device", DEV, "--out", pkl]
+    say("python -m srgan_tpu_torch.evaluate_prdc " + " ".join(argv))
+    real_transform = gan.transform
+    per_call = []
+
+    def counting(*a, **k):
+        before = read_counts()
+        result = real_transform(*a, **k)
+        per_call.append({key: v - before[key]
+                         for key, v in read_counts().items()})
+        return result
+
+    gan.transform = counting
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        run_cli(evaluate_prdc.main, argv)
+    finally:
+        gan.transform = real_transform
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    per_translate = {"cbinorm_fwd": g_per, "cbinorm_bwd": 0,
+                     "soft_histogram_fwd": 0, "soft_histogram_bwd": 0,
+                     "diversification_fwd": 0}
+    check(len(per_call) == 16 and all(c == per_translate for c in per_call),
+          f"launches per translate {per_call}, derived {per_translate}")
+    check(counts == {k: 16 * v for k, v in per_translate.items()},
+          f"launches {counts}")
+    with open(pkl, "rb") as f:
+        results = pickle.load(f)
+    for fe in fes:
+        for s in range(4):
+            for t in range(4):
+                r = {k: v[0] for k, v in results[fe][s][t].items()}
+                check(all(len(v) == 1 for v in results[fe][s][t].values())
+                      and all(math.isfinite(v) for v in r.values())
+                      and all(0 <= r[k] <= 1 for k in
+                              ("precision", "recall", "coverage"))
+                      and r["density"] >= 0, (fe, s, t, r))
+    tables = {fe: {m: [[results[fe][s][t][m][0] for t in range(4)]
+                       for s in range(4)] for m in METRICS} for fe in fes}
+
+    # a set against itself, the timings of the harness's three stages
+    ds = FaceDataset(img_root, attr_file=attr_file, data_type="test",
+                          train_num=10000, val_num=0, test_num=EVAL_SAMPLES)
+    images = np.stack([ds[i][0] for i in range(2 * EVAL_SAMPLES)])
+    ev = GANEvaluation("vgg-initialization", device=DEV)
+    same = ev.get_prdc(images[:EVAL_SAMPLES], images[:EVAL_SAMPLES],
+                       nearest_k=EVAL_K)
+    say(f"a set of {EVAL_SAMPLES} against itself: {json.dumps(same)}")
+    check(same["precision"] == same["coverage"] == 1.0,
+          "a set against itself is not precision = coverage = 1 exactly")
+    t0 = time.perf_counter()
+    pre = ev.preprocess(images)
+    pre_img_s = len(images) / (time.perf_counter() - t0)
+    feat_ms = wall_ms(lambda: ev.get_feature(pre), iters=3)
+    f = ev.get_feature(pre)
+    f1, f2 = f[:EVAL_SAMPLES], f[EVAL_SAMPLES:]
+    prdc_ms = wall_ms(lambda: compute_prdc(f1, f2, EVAL_K, device=DEV))
+    # every point twice: at k = 1 each radius is exactly 0 on the exact
+    # path, so no strict "<" holds and all four metrics are exactly 0; a
+    # matrix-product distance leaves rounding noise in radii and distances
+    real2, fake2 = torch.cat([f1, f1]), torch.cat([f2, f2])
+    d = pairwise_distances(real2, real2)
+    dup = compute_prdc(real2, fake2, 1, device=DEV)
+    say(f"{2 * EVAL_SAMPLES} x 4096 features, each twice, at k = 1: "
+        f"{json.dumps(dup)}; the largest self- and duplicate distance "
+        f"{float(d.diag().max()):g}, "
+        f"{float(d.diag(EVAL_SAMPLES).max()):g}")
+    check(float(d.diag().max()) == float(d.diag(EVAL_SAMPLES).max()) == 0
+          and all(v == 0.0 for v in dup.values()),
+          "duplicate features are not exactly 0 apart on the card")
+    say(f"evaluate_prdc: {cli_s:.1f} s; norm launches per translate "
+        f"{per_translate['cbinorm_fwd']} (derived: one G forward), "
+        f"{counts['cbinorm_fwd']} in the run; preprocess (host) "
+        f"{pre_img_s:.1f} img/s; get_feature (batch 32, host clock, the "
+        f"copies in) {1e3 * len(images) / feat_ms:.1f} img/s; PRDC of "
+        f"{EVAL_SAMPLES} vs {EVAL_SAMPLES} x 4096 {prdc_ms:.3f} ms (host "
+        "clock, synchronised)")
+    for fe in fes:
+        say(f"{fe} coverage (source x target): "
+            + json.dumps(tables[fe]["coverage"]))
+    return dict(card=name, power_limit=power_limit, argv=argv,
+                seconds=cli_s, samples_per_pair=EVAL_SAMPLES,
+                nearest_k=EVAL_K, launches=counts,
+                launches_per_translate=per_translate, self_prdc=same,
+                duplicates_prdc_k1=dup,
+                preprocess_img_s_host=pre_img_s,
+                get_feature_img_s_host=1e3 * len(images) / feat_ms,
+                prdc_ms=prdc_ms, tables=tables)
 
 
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
 
+    t_script = time.perf_counter()
     say("== phase 1: device")
     card = card_line()
     say(card)
     name, power_limit = [s.strip() for s in card.split(",", 1)]
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    gan.resolve_device(DEV)
+    check(not tf32_on(), "resolve_device left TF32 on")
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
-        "TF32 off for convolutions and matmuls in every phase")
+        "TF32 off for convolutions and matmuls, as the port's "
+        "resolve_device sets it")
 
     say("== phase 2: build the CUDA kernels")
     build_s = build.build()
@@ -1575,8 +2077,30 @@ def main():
     training, launches, fused_launches = training_phase(
         cfg, g_per, e_per, name, power_limit)
     tot = time_training_kernels(cfg, shapes, cgen, name, power_limit)
-    loop_record, loop_launches = loop_phase(
-        cfg, g_per, e_per, training["bf16"]["img_s"], name, power_limit)
+    with tempfile.TemporaryDirectory() as work:
+        loop_record, loop_launches, loop_out = loop_phase(
+            cfg, g_per, e_per, training["bf16"]["img_s"], name, power_limit,
+            work)
+        # the CLIs write their synthetic fixtures into the temporary
+        # directory: this one, removed at the end
+        saved_tempdir, tempfile.tempdir = tempfile.tempdir, work
+        try:
+            t0 = time.perf_counter()
+            classifier = classifier_phase(cfg, work, loop_out["decode"], name,
+                                          power_limit)
+            t1 = time.perf_counter()
+            vgg, vgg_pth = vgg_phase(work, loop_out["decode"], name,
+                                     power_limit)
+            t2 = time.perf_counter()
+            evaluation = evaluation_phase(g_per, loop_out, vgg_pth, work,
+                                          name, power_limit)
+            t3 = time.perf_counter()
+            classifier["phase_s"], vgg["phase_s"] = t1 - t0, t2 - t1
+            evaluation["phase_s"] = t3 - t2
+            say(f"phases 11, 12, 13: {t1 - t0:.1f}, {t2 - t1:.1f}, "
+                f"{t3 - t2:.1f} s")
+        finally:
+            tempfile.tempdir = saved_tempdir
 
     entries = []
     for kn, meta in KERNELS.items():
@@ -1605,6 +2129,16 @@ def main():
         if kn == "cbinorm_fwd":
             entry["launches_serving"] = serving["launches"]
         entry["launches_loop"] = loop_launches[kn]
+        if kn in ("cbinorm_fwd", "cbinorm_bwd"):
+            entry["launches_classifier_step"] = \
+                classifier["launches_per_step"][kn]
+            entry["launches_classifier_cli"] = \
+                classifier["cli"]["launches"][kn]
+            entry["launches_evaluation_translate"] = \
+                evaluation["launches_per_translate"][kn]
+            entry["launches_evaluation"] = evaluation["launches"][kn]
+            check(classifier["cli"]["launches"][kn] > 0,
+                  f"{kn} was not launched by the classifier pretraining")
         if kn == "cbinorm_bwd":
             entry["library"] = ("torch.autograd.grad through "
                                 "F.instance_norm")
@@ -1632,6 +2166,10 @@ def main():
     say(json.dumps({"training": training}))
     say(json.dumps({"serving": serving}))
     say(json.dumps({"loop": loop_record}))
+    say(f"phases 1-13: {time.perf_counter() - t_script:.1f} s")
+    say(json.dumps({"classifier": classifier}))
+    say(json.dumps({"vgg": vgg}))
+    say(json.dumps({"evaluation": evaluation}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

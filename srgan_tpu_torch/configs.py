@@ -1,7 +1,7 @@
 """Experiment configuration: the port's own copy of ``srgan_tpu/configs.py``
-for the presets it trains and serves (same field names and defaults), so
-that a run's ``config.json`` is the same file for both packages and the
-presets resolve without JAX."""
+for the presets it trains and serves and for the classifier-pretraining and
+PRDC jobs (same field names and defaults), so that a run's ``config.json``
+is the same file for both packages and the presets resolve without JAX."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import dataclasses
 import json
 import os
 import warnings
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +115,34 @@ def srgan_full() -> ExperimentConfig:
         trainer="srgan",
         pretrained_encoder=True,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassifierConfig:
+    """The nb04 encoder-classifier pretraining job
+    (``srgan_tpu/configs.py:196-210``)."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    epochs: int = 301
+    lr: float = 1e-4
+    lr_gamma: float = 0.99
+    batch_size: int = 512
+    test_interval: int = 3
+    train_num: int = 10000
+    val_num: int = 1000
+    test_num: int = 100
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PRDCConfig:
+    """The nb06 PRDC evaluation (``srgan_tpu/configs.py:212-219``)."""
+
+    nearest_k: int = 5
+    batch: int = 32
+    feature_extractors: Tuple[str, ...] = (
+        "vgg-initialization", "vgg-ImageNet", "vgg-CelebA")
+    metrics: Tuple[str, ...] = ("precision", "recall", "density", "coverage")
 
 
 def config_to_dict(cfg: ExperimentConfig) -> dict:

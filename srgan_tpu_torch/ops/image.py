@@ -56,6 +56,14 @@ def to_uint8_images(batch_nhwc) -> np.ndarray:
     return np.stack(out)
 
 
+def nchw_on(images_nhwc, device) -> torch.Tensor:
+    """(B, H, W, C) images (numpy or a tensor) as a contiguous fp32
+    (B, C, H, W) tensor on ``device``: the data feed's layout to the
+    models'."""
+    return torch.as_tensor(images_nhwc, dtype=torch.float32,
+                           device=device).permute(0, 3, 1, 2).contiguous()
+
+
 def to_pil(img_chw_or_hwc):
     """One image, HWC or CHW float, as a PIL image, min-maxed for display as
     ``image_from_output`` does (the ``ToPIL`` transform, util.py:118-146)."""

@@ -31,12 +31,18 @@ from srgan_tpu_torch.training.state import (
 
 def resolve_device(device) -> torch.device:
     """``torch.device(device)``; a CUDA device on a machine without CUDA
-    raises instead of carrying on on the CPU."""
+    raises instead of carrying on on the CPU.  On CUDA it also turns TF32
+    off for cuDNN's convolutions and cuBLAS's matmuls (PyTorch lets
+    convolutions use it by default), so that fp32 is computed in fp32, as
+    the reference computes it."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} asked for, but CUDA is not "
-                           "available here; pass device='cpu' to run on the "
-                           "CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} asked for, but CUDA is "
+                               "not available here; pass device='cpu' to "
+                               "run on the CPU")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     return dev
 
 

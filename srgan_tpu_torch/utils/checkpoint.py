@@ -1,9 +1,10 @@
 """Checkpoints of the port, and the weight carry-over from the JAX
 package's parameter trees.
 
-Counterpart of the torch export in ``srgan_tpu/utils/checkpoint.py:339-489``:
-the same key layout (the reference's ``SingleGenerator``, ``Encoder`` and
-``SingleDiscriminator_solo_multi``), computed from parameter trees given as
+Counterpart of the torch export in ``srgan_tpu/utils/checkpoint.py:339-529``:
+the same key layout (the reference's ``SingleGenerator``, ``Encoder``,
+``Encoder_classifier`` and ``SingleDiscriminator_solo_multi``, and
+torchvision's ``vgg19_bn``), computed from parameter trees given as
 nested dicts of numpy arrays, so the port needs no JAX to read them.
 ``load_state_dict_file`` reads the ``generator.pth`` / ``encoder.pth`` that
 ``scripts/export_torch_checkpoint.py`` writes.
@@ -88,11 +89,7 @@ def generator_state_dict_from_jax(params: Mapping, num_cls: int = 2,
     return ex.sd
 
 
-def encoder_state_dict_from_jax(params: Mapping, num_cls: int = 4
-                                ) -> Dict[str, torch.Tensor]:
-    """JAX (unconditional) ``Encoder`` params -> the port's encoder state
-    dict."""
-    ex = _Exporter(params)
+def _encoder_trunk(ex: _Exporter, num_cls: int):
     ex.put("first_layer.weight", ("first_layer", "kernel"), _inv_conv_w)
     ex.put("first_layer.bias", ("first_layer", "bias"), _vec)
     for i in range(num_cls):
@@ -105,9 +102,33 @@ def encoder_state_dict_from_jax(params: Mapping, num_cls: int = 4
                                                  "kernel"), _inv_conv_w)
         ex.put(f"layers.{i}.shortcut.1.bias", (blk, "shortcut_conv", "bias"),
                _vec)
-    for head in ("fcmean", "fcvar", "fcclass"):
+
+
+def _heads(ex: _Exporter, heads):
+    for head in heads:
         ex.put(f"{head}.weight", (head, "kernel"), _inv_lin_w)
         ex.put(f"{head}.bias", (head, "bias"), _vec)
+
+
+def encoder_state_dict_from_jax(params: Mapping, num_cls: int = 4
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX (unconditional) ``Encoder`` params -> the port's encoder state
+    dict."""
+    ex = _Exporter(params)
+    _encoder_trunk(ex, num_cls)
+    _heads(ex, ("fcmean", "fcvar", "fcclass"))
+    return ex.sd
+
+
+def classifier_state_dict_from_jax(params: Mapping, num_cls: int = 4
+                                   ) -> Dict[str, torch.Tensor]:
+    """JAX ``EncoderClassifier`` params (or a full ``Encoder``'s, whose
+    ``fcmean`` / ``fcvar`` are left out) -> the port's classifier state dict,
+    the reference's ``Encoder_classifier`` layout
+    (``srgan_tpu/utils/checkpoint.py:470-479``)."""
+    ex = _Exporter(params)
+    _encoder_trunk(ex, num_cls)
+    _heads(ex, ("fcclass",))
     return ex.sd
 
 
@@ -127,6 +148,38 @@ def solo_discriminator_state_dict_from_jax(params: Mapping, num_cls: int = 4
     for name in ("classification_layer1", "classification_layer2"):
         ex.put(f"{name}.0.weight", (name, "kernel"), _inv_conv_w)
         ex.put(f"{name}.0.bias", (name, "bias"), _vec)
+    return ex.sd
+
+
+def vgg_state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX ``VGG19BN`` ``params`` and ``batch_stats`` -> torchvision's
+    ``vgg19_bn`` key layout (``features.N.*`` with ``num_batches_tracked``
+    0, ``classifier.{0,3,6}.*``), which the port's ``VGG19BN`` loads with
+    ``strict=True`` (``srgan_tpu/utils/checkpoint.py:491-529``)."""
+    from srgan_tpu_torch.evaluation.features import VGG19_CFG
+
+    ex = _Exporter(params)
+    seq = conv_i = 0
+    for v in VGG19_CFG:
+        if v == "M":
+            seq += 1
+            continue
+        conv, bn = f"features.{seq}", f"features.{seq + 1}"
+        ex.put(f"{conv}.weight", (f"conv_{conv_i}", "kernel"), _inv_conv_w)
+        ex.put(f"{conv}.bias", (f"conv_{conv_i}", "bias"), _vec)
+        ex.put(f"{bn}.weight", (f"bn_{conv_i}", "scale"), _vec)
+        ex.put(f"{bn}.bias", (f"bn_{conv_i}", "bias"), _vec)
+        stats = batch_stats[f"bn_{conv_i}"]
+        for key, stat in (("running_mean", "mean"), ("running_var", "var")):
+            ex.sd[f"{bn}.{key}"] = torch.from_numpy(
+                np.array(stats[stat], np.float32))
+        ex.sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+        seq += 3
+        conv_i += 1
+    for idx, name in ((0, "fc0"), (3, "fc1"), (6, "fc2")):
+        ex.put(f"classifier.{idx}.weight", (name, "kernel"), _inv_lin_w)
+        ex.put(f"classifier.{idx}.bias", (name, "bias"), _vec)
     return ex.sd
 
 

@@ -30,14 +30,23 @@ print("MODULES", " ".join(ported))
 print("BAD", bad)
 """
 
-# the modules of the data feed, the loop and the CLI, which import no PIL
-# either (the card's host may lack it; it is imported where it is used)
+# the modules of the data feed, the loop, the CLIs and the evaluation, which
+# import no PIL either (the card's host may lack it; it is imported where it
+# is used)
 FEED = ("srgan_tpu_torch.data", "srgan_tpu_torch.data.attributes",
         "srgan_tpu_torch.data.dataset", "srgan_tpu_torch.data.loader",
         "srgan_tpu_torch.data.native", "srgan_tpu_torch.data.sampling",
         "srgan_tpu_torch.data.synthetic", "srgan_tpu_torch.ops.image",
         "srgan_tpu_torch.training.loop", "srgan_tpu_torch.train",
-        "srgan_tpu_torch.utils.metrics")
+        "srgan_tpu_torch.utils.metrics",
+        # classifier pretraining and PRDC evaluation
+        "srgan_tpu_torch.evaluation", "srgan_tpu_torch.evaluation.features",
+        "srgan_tpu_torch.evaluation.harness",
+        "srgan_tpu_torch.evaluation.prdc",
+        "srgan_tpu_torch.training.classifier",
+        "srgan_tpu_torch.training.vgg_finetune",
+        "srgan_tpu_torch.pretrain_classifier", "srgan_tpu_torch.finetune_vgg",
+        "srgan_tpu_torch.evaluate_prdc")
 
 
 def test_port_and_chip_smoke_import_no_jax_or_srgan_tpu():
@@ -48,7 +57,7 @@ def test_port_and_chip_smoke_import_no_jax_or_srgan_tpu():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 28, r.stdout
+    assert n >= 37, r.stdout
     modules = r.stdout.split("MODULES")[1].split("\n")[0].split()
     assert set(FEED) <= set(modules), sorted(set(FEED) - set(modules))
 
@@ -93,6 +102,23 @@ def test_cuda_wrapper_raises_here():
     assert diversification.LAUNCHES == 0
 
 
+def test_resolve_device_turns_tf32_off_on_cuda(monkeypatch):
+    """Every entry point resolves its device here: on CUDA, fp32
+    convolutions and matmuls must not run in TF32 (PyTorch's default lets
+    cuDNN use it); the CPU leaves the flags alone."""
+    from srgan_tpu_torch.training.gan import resolve_device
+
+    for flags in (torch.backends.cudnn, torch.backends.cuda.matmul):
+        monkeypatch.setattr(flags, "allow_tf32", True)
+    assert resolve_device("cpu").type == "cpu"
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device("cuda").type == "cuda"
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
 def test_norm_output_carries_the_gradient():
     """The norm's output keeps a grad_fn whenever an input requires grad,
     so a gradient reaches every layer below a norm."""
@@ -111,3 +137,26 @@ def test_norm_output_carries_the_gradient():
         norm.fused_cbinorm(x.detach().to("meta").requires_grad_(True),
                            t.to("meta"), g.to("meta"),
                            torch.zeros(3, device="meta"))
+
+
+@pytest.mark.parametrize("cli", ["pretrain_classifier", "finetune_vgg",
+                                 "evaluate_prdc"])
+def test_new_clis_refuse_cuda_without_it(tmp_path, cli):
+    """Each CLI defaults to the card and, without CUDA, stops before it
+    reads any data instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    args = [sys.executable, "-m", f"srgan_tpu_torch.{cli}", "--out",
+            str(tmp_path / "out")]
+    if cli == "evaluate_prdc":
+        args += ["--ckpt", str(tmp_path / "ckpt"), "--preset",
+                 "05_srgan_full"]
+    else:
+        args += ["--synthetic"]
+    r = subprocess.run(args, cwd=ROOT, env=dict(os.environ,
+                                                 TMPDIR=str(tmp_path)),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "CUDA is not available" in r.stderr, r.stderr[-3000:]
+    assert not os.path.exists(tmp_path / "out")
+    assert not [d for d in os.listdir(tmp_path) if "synthetic" in d]
