@@ -9,15 +9,20 @@ from the root of a checkout; no install step, no argument.  Phases:
   2. build the CUDA kernels (plain nvcc, one process per source, all
      started together; loaded with ctypes);
   3. the conditional-instance-norm forward kernel against its plain
-     PyTorch twin on the card, at every (C, H, W) the model path gives it,
-     batch 8, fp32 and bf16, ReLU on and off;
+     PyTorch twin on the card, at every (C, H, W) the model path gives it
+     (G, the SRGAN encoder and the SingleGAN presets' conditional encoder),
+     batch 8, per-sample conditional bias, fp32 and bf16, ReLU on and off;
   4. the serving path at the full width of preset 05_srgan_full (128 px,
      g_nch 64, g_res_num 6, e_nch 64, e_num_cls 4, fp32), random weights
      from a seeded torch.Generator saved and loaded back through the
      Translator's weights dir: translate N = 1, 8, 40 and encode N = 8
      through the npz request dispatch, with the kernel's launch count read
      around those requests, and one batch-8 forward checked against the
-     same model with the plain norm forced;
+     same model with the plain norm forced; then a 02_singlegan_solod
+     training checkpoint (random weights) served through ``serve``'s
+     --ckpt path: translate, and encode with the labels the conditional
+     encoder needs (without them the request fails), its launches counted
+     and its mu held against the plain norm;
   5. CUDA-event timings of the forward kernel, its plain twin and
      F.instance_norm (timed as a yardstick, never called by the port) at
      those shapes, and translate throughput at batch 32;
@@ -34,9 +39,9 @@ from the root of a checkout; no install step, no argument.  Phases:
      main path's (128, 8, 50) to batch 4,096 and 20 dimensions, each
      called twice for the same bits and held, like its plain fp32 twin,
      against the same composition in float64;
-  7. the gradient repair: a G + E + D forward and backward at batch 8
-     through the kernels against the same models with the plain norm
-     forced, every parameter's gradient compared;
+  7. the gradient repair: a G + E + D + conditional-E forward and
+     backward at batch 8 through the kernels against the same models with
+     the plain norm forced, every parameter's gradient compared;
   8. the train step of 05_srgan_full at full width (batch 128, k = 5, the
      proposed loss stack, frozen encoder trunk, fp32): 1 warm and 3 timed
      steps with every metric printed and finite and every kernel's launches
@@ -67,8 +72,10 @@ from the root of a checkout; no install step, no argument.  Phases:
      one step's gradients through the kernels against the plain norm; then
      ``python -m srgan_tpu_torch.pretrain_classifier --synthetic`` (in
      process) on 160 images, 4 epochs of 2 steps of 64, its launches as
-     derived, and its classifier_best.pth loaded into the 05_srgan_full
-     encoder through load_pretrained_encoder, the trunk bit-equal;
+     derived, its confusion_matrix.png where matplotlib imports (else
+     --no-confusion-plot), and its classifier_best.pth loaded into the
+     05_srgan_full encoder through load_pretrained_encoder, the trunk
+     bit-equal;
  12. VGG19-BN at 224 px, batch 32: features on the card against the same
      weights on the CPU, their time; 1 warm and 3 timed fine-tune steps;
      ``finetune_vgg --synthetic`` (2 steps of 32) from torchvision's init
@@ -79,7 +86,22 @@ from the root of a checkout; no install step, no argument.  Phases:
      launches of each translate as derived (one G forward), a set against
      itself at precision = coverage = 1 exactly, a set of duplicated
      features at k = 1 at all four metrics exactly 0 (the exact distances);
-     the harness's preprocess, feature and PRDC times.
+     the harness's preprocess, feature and PRDC times;
+ 14. the trainer variants at full width (128 px, batch 128, fp32, TF32
+     off): 01_proposed_singlegan_k5 (per-domain Ds, conditional encoder),
+     01_conventional_singlegan (k 1, the reparametrised style),
+     02_singlegan_solod and 05_srgan_full with unrolled_restore=True, each
+     1 warm and 2 timed steps with every metric finite, the peak memory and
+     every kernel's launches per step as derived; for unrolled_restore, D's
+     parameters after each step bit-equal to their values after its first
+     update and Adam's step count at all k updates; one bf16 step of
+     01_proposed_singlegan_k5;
+ 15. the visualisation module: the progress grid's panels and a
+     ``get_samples`` sweep with injected latents on the card against the
+     same weights on the CPU; ``sample_sweep`` on phase 10's checkpoint
+     (GIFs where PIL imports, the grid PNG where matplotlib does); and
+     ``train_gan`` with grids on: where matplotlib is missing it must
+     refuse before any step, else write the JAX loop's PNG names.
 
 Each entry point of phases 11-13 runs with TF32 turned on before it and
 must turn it off itself (``resolve_device``), as it does for its users.
@@ -88,8 +110,9 @@ Without CUDA it raises before printing a result.  It starts no server; its
 subprocesses are nvidia-smi, nvcc and g++ (the host probes and the native
 decoder's build), each with a timeout, and its threads are the loader's
 workers, joined at the end of each epoch.  Before the last line it prints
-the `kernels`, `training`, `serving`, `loop`, `classifier`, `vgg` and
-`evaluation` JSON lines; the last line is {"ok": true, "device": {...}}.
+the `kernels`, `training`, `serving`, `loop`, `classifier`, `vgg`,
+`evaluation`, `variants` and `visualisation` JSON lines; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -113,7 +136,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from srgan_tpu_torch.configs import PRESETS  # noqa: E402
+from srgan_tpu_torch.configs import PRESETS, config_from_dict  # noqa: E402
 from srgan_tpu_torch.ops import (  # noqa: E402
     build,
     diversification,
@@ -305,10 +328,11 @@ def norm_inputs(gen, B, C, H, W, dtype):
     return x, t, g, b
 
 
-def path_norm_shapes(G, E, cfg):
+def path_norm_shapes(G, E, cfg, Ec=None):
     """(C, H, W) -> launches per forward, for one generator and one encoder
-    forward, recorded from the models themselves at batch 1."""
-    seen = {"G": {}, "E": {}}
+    forward (and one of the conditional encoder ``Ec``), recorded from the
+    models themselves at batch 1."""
+    seen = {"G": {}, "E": {}, "Ec": {}}
     which = [None]
     real = norm.fused_cbinorm
 
@@ -327,6 +351,9 @@ def path_norm_shapes(G, E, cfg):
             G(x, c)
             which[0] = "E"
             E(x)
+            if Ec is not None:
+                which[0] = "Ec"
+                Ec(x, c[:, :cfg.model.n_classes])
     finally:
         norm.fused_cbinorm = real
     return seen
@@ -377,6 +404,70 @@ def bf16_ulps_ok(got, want) -> bool:
     return bool(((got - want).abs() <= 2 * ulp + floor).all())
 
 
+# the trainer variants of phases 4 and 14: the SingleGAN baselines (nb01,
+# nb02) and 05_srgan_full's UnrolledGAN restore
+SOLO_PRESET = "02_singlegan_solod"
+VARIANTS = (("01_proposed_singlegan_k5", {}),
+            ("01_conventional_singlegan", {}),
+            (SOLO_PRESET, {}),
+            ("05_srgan_full", {"unrolled_restore": True}))
+VARIANT_TIMED_STEPS = 2
+
+
+def serve_singlegan(scfg, g_per, e_per, images, labels, chunk):
+    """Phase 4's SingleGAN part: a training checkpoint of ``scfg`` (random
+    weights, as ``train_gan`` writes them: ``run/config.json``,
+    ``run/ckpt/step_N``) served through ``serve``'s --ckpt path with no
+    --preset.  Returns the launches of its requests."""
+    from srgan_tpu_torch import serve
+    from srgan_tpu_torch.configs import save_config
+    from srgan_tpu_torch.utils.checkpoint import save_checkpoint
+
+    m = scfg.model
+    n = 8
+    with tempfile.TemporaryDirectory() as run:
+        trainer = gan.GANTrainer(scfg, DEV)
+        state = trainer.init_state(torch.Generator().manual_seed(21))
+        save_config(scfg, run)
+        save_checkpoint(os.path.join(run, "ckpt"), state, step=2)
+        del trainer, state
+        tr = serve.build_translator(serve.parse_args(
+            ["--ckpt", os.path.join(run, "ckpt"), "--device", DEV,
+             "--warm-batch-sizes", str(chunk)]))
+    check(tr.cfg == scfg, "serve --ckpt did not find the run's config")
+    reset_counts()
+    code, body = handle_request(tr, "/translate", encode_npz(
+        images=images[:n], target_labels=labels[:n], seed=3))
+    check(code == 200, body[:2000])
+    fakes = decode_npz(body)["fakes"]
+    check(np.isfinite(fakes).all() and np.abs(fakes).max() <= 1.0,
+          "SingleGAN fakes not finite or outside [-1, 1]")
+    code, body = handle_request(tr, "/encode", encode_npz(
+        images=images[:n], labels=labels[:n]))
+    check(code == 200, body[:2000])
+    enc = decode_npz(body)
+    counts = read_counts()
+    check(counts["cbinorm_fwd"] == g_per + e_per
+          and counts["cbinorm_bwd"] == 0, counts)
+    code, body = handle_request(tr, "/encode",
+                                encode_npz(images=images[:n]))
+    check(code == 400 and b"labels" in body,
+          f"/encode without labels: {code} {body[:200]}")
+    x = torch.from_numpy(images[:n]).to(DEV).permute(0, 3, 1, 2) \
+        .contiguous()
+    oh = gan.onehot(labels[:n], m.n_classes).to(DEV)
+    want = forward_with_plain_norm(lambda: tr.E(x, oh))[1].cpu().numpy()
+    err = float(np.abs(enc["mu"] - want).max())
+    say(f"{SOLO_PRESET} served from its ckpt dir (config found, no "
+        f"--preset): translate N={n} and encode N={n} with labels, "
+        f"launches {counts}; mu against the plain norm {err:.3e} (tol "
+        f"{MODEL_TOL:g}); encode without labels refused (400)")
+    check(err <= MODEL_TOL, "the conditional encoder disagrees with the "
+          "plain norm")
+    del tr
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the serving slice
 # ---------------------------------------------------------------------------
@@ -386,17 +477,24 @@ def serving_phases(cfg, name, power_limit):
     gen = torch.Generator().manual_seed(0)
     G = gan.build_generator(cfg, DEV, gen)
     E = gan.build_encoder(cfg, DEV, gen)
+    scfg = PRESETS[SOLO_PRESET]()
+    check(scfg.model == cfg.model, "the SingleGAN preset's widths differ")
+    Ec = gan.build_encoder(scfg, DEV, gen)
     say(f"== phase 3: kernel vs plain on the card, batch {CHECK_BATCH}, at "
-        f"the norm shapes of {PRESET}")
-    shapes = path_norm_shapes(G, E, cfg)
+        f"the norm shapes of {PRESET} and of {SOLO_PRESET}'s conditional "
+        "encoder")
+    shapes = path_norm_shapes(G, E, cfg, Ec)
     g_per_fwd = sum(shapes["G"].values())
     e_per_fwd = sum(shapes["E"].values())
     # the down CBINorms, 2 per residual block, the up path's plain norms
     check(g_per_fwd == (m.g_num_cls + 1) + 2 * m.g_res_num + m.g_num_cls,
           shapes)
     check(e_per_fwd == 2 * m.e_num_cls, shapes)
+    # the conditional encoder: a CBINorm where the SRGAN one normalises
+    check(shapes["Ec"] == shapes["E"], shapes)
     say(f"norm launches per forward: G {g_per_fwd} {shapes['G']}, "
-        f"E {e_per_fwd} {shapes['E']}")
+        f"E {e_per_fwd} {shapes['E']}, conditional E {shapes['Ec']}")
+    del Ec
     cgen = torch.Generator(device=DEV).manual_seed(1)
     all_shapes = sorted(set(shapes["G"]) | set(shapes["E"]))
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -485,6 +583,8 @@ def serving_phases(cfg, name, power_limit):
         f"E heads: {e_err:.3e} (tol {MODEL_TOL:g})")
     check(g_err <= MODEL_TOL and e_err <= MODEL_TOL,
           "model output with the kernel disagrees with the plain norm")
+    solo_launches = serve_singlegan(scfg, g_per_fwd, e_per_fwd, images,
+                                    labels, chunk)
 
     say(f"== phase 5: timing at batch {TIMING_BATCH} (CUDA events around "
         "calls queued behind a device sleep: device time; the kernel is "
@@ -515,6 +615,7 @@ def serving_phases(cfg, name, power_limit):
 
     serving = dict(preset=PRESET, tf32=False, card=name,
                    power_limit=power_limit, launches=launches,
+                   launches_singlegan=solo_launches,
                    norm_ms_per_g_plus_e=per_request("kernel_ms"),
                    norm_plain_ms_per_g_plus_e=per_request("plain_ms"),
                    norm_library_ms_per_g_plus_e=per_request("library_ms"),
@@ -816,15 +917,17 @@ def plain64(x, t, g, b, eps=1e-5, relu=False):
 
 
 def check_gradient_repair(cfg, g_per, e_per):
-    """Phase 7: G + E + D forward and backward through the kernels against
-    the same models with the plain norm forced.  ``g_per`` and ``e_per``
-    are the norms of one G and one E forward; each runs forward and
-    backward once here (E's input, the fake, needs a gradient)."""
+    """Phase 7: G + E + D + the SingleGAN presets' conditional encoder Ec,
+    forward and backward through the kernels against the same models with
+    the plain norm forced.  ``g_per`` and ``e_per`` are the norms of one G
+    and one E forward (Ec has E's); each runs forward and backward once
+    here (E's and Ec's input, the fake, needs a gradient)."""
     m = cfg.model
     gen = torch.Generator().manual_seed(3)
     G = gan.build_generator(cfg, DEV, gen)
     E = gan.build_encoder(cfg, DEV, gen)
     D = gan.build_discriminator(cfg, DEV, gen)
+    Ec = gan.build_encoder(PRESETS[SOLO_PRESET](), DEV, gen)
     rng = np.random.default_rng(3)
     hw, B = m.image_size, CHECK_BATCH
     x = torch.from_numpy(rng.uniform(-1, 1, (B, m.nch_in, hw, hw))
@@ -835,20 +938,20 @@ def check_gradient_repair(cfg, g_per, e_per):
         (B, m.ndim)).astype(np.float32)).to(DEV)], 1)
     w = torch.from_numpy(rng.standard_normal((B, m.nch_in, hw, hw))
                          .astype(np.float32)).to(DEV)
-    names = [f"G.{n}" for n, _ in G.named_parameters()] \
-        + [f"E.{n}" for n, _ in E.named_parameters()] \
-        + [f"D.{n}" for n, _ in D.named_parameters()]
-    params = list(G.parameters()) + list(E.parameters()) \
-        + list(D.parameters())
+    nets = (("G", G), ("E", E), ("D", D), ("Ec", Ec))
+    names = [f"{k}.{n}" for k, net in nets for n, _ in net.named_parameters()]
+    params = [p for _, net in nets for p in net.parameters()]
 
     def grads():
         fake = G(x, c)
         adv, cls = D(fake)
         mu, logvar, cls_e = E(fake)
+        _, mu_c, logvar_c = Ec(fake, onehot)
         loss = (L.lsgan_loss(adv, 1.0)
                 + L.domain_classification_loss(cls, onehot)
                 + (fake * w).mean() + mu.square().mean() + logvar.mean()
-                + cls_e.square().mean())
+                + cls_e.square().mean() + mu_c.square().mean()
+                + logvar_c.mean())
         return torch.autograd.grad(loss, params)
 
     with deterministic_cudnn():
@@ -909,11 +1012,13 @@ def check_gradient_repair(cfg, g_per, e_per):
         f"norm {worst['float64'][0]:.2e} ({worst['float64'][1]}), plain vs "
         f"float64 norm {worst['plain_vs_float64'][0]:.2e} "
         f"({worst['plain_vs_float64'][1]}); tol {GRAD_TOL:g}")
-    check(counts["cbinorm_fwd"] == g_per + e_per
-          and counts["cbinorm_bwd"] == g_per + e_per, counts)
-    check(len(calls) == g_per + e_per and max(calls) <= REL_TOL,
+    per = g_per + 2 * e_per
+    check(counts["cbinorm_fwd"] == per and counts["cbinorm_bwd"] == per,
+          counts)
+    check(len(calls) == per and max(calls) <= REL_TOL,
           "a backward launch disagrees with its plain twin")
-    # the plain instance norms (G's up path, E's trunk) ask for dx alone
+    # the plain instance norms (G's up path, E's trunk) ask for dx alone;
+    # Ec's are conditional
     n_in = cfg.model.g_num_cls + e_per
     say(f"{sum(no_affine)} of the {len(calls)} backward launches took the "
         f"no-affine call (the instance norms: {n_in})")
@@ -923,29 +1028,36 @@ def check_gradient_repair(cfg, g_per, e_per):
     return worst
 
 
-def expected_counts(cfg, g_per, e_per, fused):
-    """Launches of each kernel in one train step, from the step's code
-    (srgan_tpu_torch/training/gan.py::GANTrainer.step), with idt > 0 and
-    idt_reg * idt > 0 as in the preset:
+def expected_counts(cfg, g_per, e_per, fused=False):
+    """Launches of each kernel in one train step of ``cfg``, from the
+    step's code (srgan_tpu_torch/training/gan.py::GANTrainer.step), with
+    idt > 0 as in every preset; ``e_per`` is the norms of one forward of
+    either encoder.
 
     forward norms, G: k - 1 D-loop fakes (no grad), the k-th fake, the
-    phase-1 pair (one 2B call), the phase-2 pair (one 2B call) = k + 2
-    calls; E: phase 1 on the images, phase 2 on the images (no grad) and
-    on the 2B pair = 3 calls.
+    phase-1 pair (one 2B call) and phase 2's call (the 2B pair, or one B
+    call without the identity regression) = k + 2 calls; E: phase 1 on the
+    images, phase 2 on its G output, and, in the SRGAN flavour of the
+    identity regression (idt_reg * idt > 0, unconditional encoder), on the
+    images (no grad) = 2 or 3 calls.
     backward norms: G's k-th fake (its graph feeds D(fake) and the phase-1
-    pair: one backward), the phase-1 pair and the phase-2 pair = 3 G
-    backwards; E: the phase-2 pair's forward, back to its input = 1; E's
-    phase-1 forward on the images reaches no norm backward, since the
-    trunk is frozen (neither its input nor its parameters need a
-    gradient).
-    soft histogram: once forward, once backward (phase 1's errE), unless
-    the fused kernel takes the stack; fused kernel: 0, or 1 when fused.
+    pair: one backward), the phase-1 pair and phase 2's call = 3 G
+    backwards; E: phase 2's call, back to its input, and phase 1's
+    forward unless the trunk is frozen (05_srgan_full: neither its input
+    nor its parameters need a gradient).
+    soft histogram (the proposed stack): once forward, once backward
+    (phase 1's errE), unless the fused kernel takes the stack; fused
+    kernel: 0, or 1 when fused.  The discriminators run no norm.
     """
-    k = cfg.train.unrolled_k
-    return {"cbinorm_fwd": (k + 2) * g_per + 3 * e_per,
-            "cbinorm_bwd": 3 * g_per + e_per,
-            "soft_histogram_fwd": 0 if fused else 1,
-            "soft_histogram_bwd": 0 if fused else 1,
+    k, lw = cfg.train.unrolled_k, cfg.loss
+    srgan_idt = lw.idt_reg * lw.idt > 0 and not gan.conditional_encoder(cfg)
+    e_fwd = 3 if srgan_idt else 2
+    e_bwd = 1 if cfg.pretrained_encoder else 2
+    hist = 1 if lw.batch_KL > 0 and lw.hist > 0 and not fused else 0
+    return {"cbinorm_fwd": (k + 2) * g_per + e_fwd * e_per,
+            "cbinorm_bwd": 3 * g_per + e_bwd * e_per,
+            "soft_histogram_fwd": hist,
+            "soft_histogram_bwd": hist,
             "diversification_fwd": 1 if fused else 0}
 
 
@@ -984,9 +1096,11 @@ def timed_step(trainer, state, batch):
 
 
 def fresh(cfg):
+    """A trainer and seeded state of ``cfg``; its encoder trunk frozen
+    where the preset says so (05_srgan_full)."""
     trainer = gan.GANTrainer(cfg, DEV)
     state = trainer.init_state(torch.Generator().manual_seed(0),
-                               freeze_pretrained=True)
+                               freeze_pretrained=cfg.pretrained_encoder)
     return trainer, state
 
 
@@ -1085,6 +1199,7 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
         steps.append(dict(metrics=metrics, device_ms=dev_ms,
                           host_ms=host_ms))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gflop = step_gflop_per_image(cfg, trainer, state)
     say("== phase 8a: one more fp32 step under torch.profiler")
     prof_fp32 = profile_step(lambda: trainer.step(state, batches[-1]))
     say_profile("one fp32 step", prof_fp32)
@@ -1147,7 +1262,7 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
         step_device_ms_mean=sum(s["device_ms"] for s in timed) / len(timed),
         img_s=1e3 * B * len(timed) / sum(s["device_ms"] for s in timed),
         peak_mem_gib=peak, metrics_last_step=timed[-1]["metrics"],
-        launches_per_step=want,
+        launches_per_step=want, step_gflop_per_image=gflop,
         profile=prof_fp32,
         fused_step=dict(device_ms=f_ms, launches=f_counts,
                         worst_rel_diff_to_unfused=worst),
@@ -1748,6 +1863,10 @@ def classifier_phase(cfg, work, decode, name, power_limit):
             "--image-size", str(m.image_size), "--e-nch", str(m.e_nch),
             "--e-num-cls", str(m.e_num_cls), "--decode", decode,
             "--device", DEV, "--out", out]
+    # the confusion-matrix figure needs matplotlib
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    if not has_mpl:
+        argv.append("--no-confusion-plot")
     say("python -m srgan_tpu_torch.pretrain_classifier " + " ".join(argv))
     reset_counts()
     t0 = time.perf_counter()
@@ -1769,6 +1888,9 @@ def classifier_phase(cfg, work, decode, name, power_limit):
     check(test_metrics["test_n"] == 4 * c["test_num"]
           and np.asarray(test_metrics["confusion_matrix"]).shape == (4, 4),
           test_metrics)
+    check(os.path.exists(os.path.join(out, "confusion_matrix.png"))
+          == has_mpl, "confusion_matrix.png written where matplotlib is "
+          "missing, or missing where it is present")
     pth = os.path.join(out, "classifier_best.pth")
     sd = torch.load(pth, map_location="cpu", weights_only=True)
     E = gan.build_encoder(cfg, "cpu", torch.Generator().manual_seed(12))
@@ -2036,6 +2158,318 @@ def evaluation_phase(g_per, loop_out, vgg_pth, work, name, power_limit):
                 prdc_ms=prdc_ms, tables=tables)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the trainer variants
+# ---------------------------------------------------------------------------
+
+class DSnapshots:
+    """Wraps ``state.opt_d.step``: after the first D update of each train
+    step it keeps a copy of D's parameters, the values that
+    ``unrolled_restore`` must leave them at."""
+
+    def __init__(self, state, k):
+        self.state, self.k, self.calls, self.snap = state, k, 0, None
+        self.real = state.opt_d.step
+
+        def step(*a, **kw):
+            out = self.real(*a, **kw)
+            if self.calls % self.k == 0:
+                self.snap = [p.detach().clone()
+                             for p in state.D.parameters()]
+            self.calls += 1
+            return out
+
+        state.opt_d.step = step
+
+    def check(self, steps_done):
+        state = self.state
+        same = all(torch.equal(p, v) for p, v in
+                   zip(state.D.parameters(), self.snap))
+        adam = {int(state.opt_d.state[p]["step"])
+                for p in state.D.parameters()}
+        check(same, "unrolled_restore: D's parameters are not their values "
+              "after the step's first update")
+        check(adam == {self.k * steps_done}, f"Adam's step counts {adam}, "
+              f"want {self.k * steps_done} (all k updates)")
+        return dict(params_equal_snapshot=same, adam_step=adam.pop())
+
+
+def step_gflop_per_image(cfg, trainer, state):
+    """Forward GFLOP an image of one train step of ``cfg`` on ``state``'s
+    nets (2 a multiply-accumulate, ``forward_flops``), a backward through
+    the weights and the input counted as two forwards and one through the
+    input alone as one: G (k + 14) g, or (k + 11) g without phase 2's pair;
+    D (6k + 2) d, d over every domain's D; E (5, or 3 without the pair, + 2
+    if the encoder trains + 1 for the SRGAN identity regression) e.  The
+    calls are those of ``expected_counts``."""
+    m, k, lw = cfg.model, cfg.train.unrolled_k, cfg.loss
+    x = torch.zeros((1, m.nch_in, m.image_size, m.image_size), device=DEV)
+    c = torch.zeros((1, m.num_con), device=DEV)
+
+    class Call(torch.nn.Module):
+        def __init__(self, net, fn):
+            super().__init__()
+            self.net, self.fn = net, fn
+
+        def forward(self, x):
+            return self.fn(self.net, x)
+
+    g = forward_flops(Call(state.G, lambda net, x: net(x, c)), x)
+    e = forward_flops(Call(state.E, lambda net, x: trainer._E(
+        net, x, c[:, :m.n_classes])), x)
+    d = forward_flops(Call(state.D, lambda net, x: [Di(x) for Di in net]
+                           if isinstance(net, torch.nn.ModuleList)
+                           else net(x)), x)
+    pair = lw.idt_reg * lw.idt > 0
+    srgan_idt = pair and not gan.conditional_encoder(cfg)
+    g_units = k + (14 if pair else 11)
+    e_units = (5 if pair else 3) + (0 if cfg.pretrained_encoder else 2) \
+        + int(srgan_idt)
+    return (g_units * g + (6 * k + 2) * d + e_units * e) / 1e9
+
+
+def variants_phase(g_per, e_per, name, power_limit):
+    """Phase 14.  Returns the `variants` record and the launches per step
+    of each variant."""
+    say(f"== phase 14: the trainer variants at full width, batch 128, fp32 "
+        f"(TF32 off): 1 warm and {VARIANT_TIMED_STEPS} timed steps each, "
+        "random weights from a seeded torch.Generator, synthetic batches")
+    record, launches = {}, {}
+    for preset, over in VARIANTS:
+        cfg = PRESETS[preset]()
+        if over:
+            cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, **over))
+        key = preset + "".join(f"+{k}" for k in over)
+        k = cfg.train.unrolled_k
+        want = expected_counts(cfg, g_per, e_per)
+        batches = make_batches(cfg, 1 + VARIANT_TIMED_STEPS, seed=14)
+        t0 = time.perf_counter()
+        trainer, state = fresh(cfg)
+        init_s = time.perf_counter() - t0
+        snaps = DSnapshots(state, k) if cfg.train.unrolled_restore else None
+        torch.cuda.reset_peak_memory_stats()
+        steps, restore = [], None
+        for i, batch in enumerate(batches):
+            metrics, dev_ms, host_ms, counts = timed_step(trainer, state,
+                                                          batch)
+            check(counts == want, f"{key}: launches {counts}, derived "
+                  f"{want}")
+            if snaps is not None:
+                restore = snaps.check(i + 1)
+            steps.append(dict(metrics=metrics, device_ms=dev_ms,
+                              host_ms=host_ms))
+            say(f"{key} step {i} ({'warm' if i == 0 else 'timed'}): device "
+                f"{dev_ms:.1f} ms, host {host_ms:.1f} ms, launches "
+                f"{counts}, " + json.dumps(metrics))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        timed = [st["device_ms"] for st in steps[1:]]
+        gflop = step_gflop_per_image(cfg, trainer, state)
+        mean_ms = sum(timed) / len(timed)
+        rec = dict(trainer=cfg.trainer, unrolled_k=k,
+                   encoded_feature=cfg.train.encoded_feature,
+                   loss=dataclasses.asdict(cfg.loss),
+                   freeze_pretrained=cfg.pretrained_encoder, init_s=init_s,
+                   warm_step_device_ms=steps[0]["device_ms"],
+                   step_device_ms=timed,
+                   step_host_ms=[st["host_ms"] for st in steps[1:]],
+                   step_device_ms_mean=mean_ms,
+                   img_s=1e3 * cfg.train.batch_size * len(timed) / sum(timed),
+                   step_gflop_per_image=gflop,
+                   step_tflop_s=gflop * cfg.train.batch_size / mean_ms,
+                   peak_mem_gib=peak, launches_per_step=want,
+                   metrics_last_step=steps[-1]["metrics"])
+        if restore is not None:
+            rec["unrolled_restore"] = restore
+        record[key] = rec
+        launches[key] = want
+        del trainer, state, snaps
+        torch.cuda.empty_cache()
+
+    preset = VARIANTS[0][0]
+    cfg = PRESETS[preset]()
+    bcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype="bfloat16"))
+    trainer, state = fresh(bcfg)
+    want = expected_counts(bcfg, g_per, e_per)
+    torch.cuda.reset_peak_memory_stats()
+    bf16 = []
+    for batch in make_batches(bcfg, 2, seed=15):
+        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch)
+        check(counts == want, f"bf16 {preset}: launches {counts}, derived "
+              f"{want}")
+        bf16.append(dict(device_ms=dev_ms, host_ms=host_ms, metrics=metrics))
+        say(f"{preset} bf16 step: device {dev_ms:.1f} ms, host "
+            f"{host_ms:.1f} ms, launches {counts}, " + json.dumps(metrics))
+    record[preset]["bf16"] = dict(
+        warm_step_device_ms=bf16[0]["device_ms"],
+        step_device_ms=bf16[1]["device_ms"],
+        img_s=1e3 * bcfg.train.batch_size / bf16[1]["device_ms"],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        metrics=bf16[1]["metrics"])
+    del trainer, state
+    torch.cuda.empty_cache()
+    for key, rec in record.items():
+        say(f"{key}: {rec['step_device_ms_mean']:.1f} ms a step, "
+            f"{rec['img_s']:.1f} img/s, peak {rec['peak_mem_gib']:.2f} GiB, "
+            f"{rec['step_gflop_per_image']:.1f} GFLOP an image a step "
+            f"(step_gflop_per_image), {rec['step_tflop_s']:.1f} TFLOP/s")
+    return dict(batch=cfg.train.batch_size, dtype="float32", tf32=False,
+                card=name, power_limit=power_limit, presets=record), launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: visualisation
+# ---------------------------------------------------------------------------
+
+VIZ_SAMPLES = 2            # random latents of the grid and of the sweep
+
+
+def viz_phase(cfg, loop_out, probes, work, name, power_limit):
+    """Phase 15, in the directory ``work``.  Returns the `visualisation`
+    record."""
+    from srgan_tpu_torch import sample_sweep
+    from srgan_tpu_torch.utils import viz
+    from srgan_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    say(f"== phase 15: visualisation at the full width of {SOLO_PRESET} "
+        f"(card against CPU, {VIZ_SAMPLES} latents), sample_sweep and the "
+        f"loop's grids on phase 10's run; matplotlib "
+        f"{'present' if has_mpl else 'missing'}, PIL "
+        f"{'present' if probes['PIL'] else 'missing'} on this host")
+    img_root, attr_file = loop_out["data"]
+    run = loop_out["run"]
+    with open(os.path.join(run, "config.json")) as f:
+        lcfg = config_from_dict(json.load(f))
+    test_ds = FaceDataset(img_root, attr_file=attr_file, data_type="test",
+                          train_num=lcfg.train.train_num, val_num=0,
+                          test_num=lcfg.train.test_num,
+                          image_size=lcfg.model.image_size)
+    rec = dict(card=name, power_limit=power_limit, matplotlib=has_mpl,
+               PIL=probes["PIL"])
+
+    # the device parts on the card and on the CPU, the same weights
+    scfg = PRESETS[SOLO_PRESET]()
+    sd = {}
+    gen = torch.Generator().manual_seed(31)
+    for net, build in (("G", gan.build_generator), ("E", gan.build_encoder)):
+        sd[net] = build(scfg, "cpu", gen).state_dict()
+    img, label = test_ds[0]
+    classes = tuple(range(scfg.model.n_classes))
+    lat = viz.progress_latents(VIZ_SAMPLES, len(classes) - 1,
+                               scfg.model.ndim,
+                               torch.Generator().manual_seed(32))
+    sweep = np.random.default_rng(0).standard_normal(
+        (VIZ_SAMPLES, scfg.model.ndim)).astype(np.float32)
+    out = {}
+    for dev in (DEV, "cpu"):
+        trainer = gan.GANTrainer(scfg, dev)
+        state = trainer.init_state(g_state=sd["G"], e_state=sd["E"])
+        t0 = time.perf_counter()
+        panels = viz.progress_panels(trainer, state, img, label, classes,
+                                     VIZ_SAMPLES, latents=lat)
+        data, labels = viz.get_samples(trainer, state, test_ds, 0, sweep,
+                                       classes=classes)
+        out[dev] = (panels, data, labels, time.perf_counter() - t0)
+        del trainer, state
+    err = max(
+        [float(np.abs(out[DEV][0][k] - v).max())
+         for k, v in out["cpu"][0].items()]
+        + [float(np.abs(out[DEV][1]["target"][c] - v).max())
+           for c, v in out["cpu"][1]["target"].items()]
+        + [float(np.abs(out[DEV][2]["latent"][c] - v).max())
+           for c, v in out["cpu"][2]["latent"].items()])
+    rec.update(card_vs_cpu_max_abs_err=err, card_s=out[DEV][3],
+               cpu_s=out["cpu"][3])
+    say(f"progress panels and sweep, card against CPU: max abs {err:.3e} "
+        f"(tol {MODEL_TOL:g}); card {out[DEV][3]:.2f} s, CPU "
+        f"{out['cpu'][3]:.2f} s")
+    check(err <= MODEL_TOL, "the visualisation's arrays on the card "
+          "disagree with the CPU's")
+
+    if probes["PIL"]:
+        sweep_dir = os.path.join(work, "sweep")
+        argv = ["--ckpt", os.path.join(run, "ckpt"), "--data-root", img_root,
+                "--attr-file", attr_file, "--out", sweep_dir, "--device",
+                DEV] + ([] if has_mpl else ["--no-grid"])
+        say("python -m srgan_tpu_torch.sample_sweep " + " ".join(argv))
+        reset_counts()
+        t0 = time.perf_counter()
+        run_cli(sample_sweep.main, argv)
+        sweep_s = time.perf_counter() - t0
+        written = sorted(os.listdir(sweep_dir))
+        want = sorted([f"index0_class{c}.gif" for c in classes]
+                      + [f"latent_mu_class{c}.npy" for c in classes]
+                      + (["result_index0_grid.png"] if has_mpl else []))
+        check(written == want, f"sample_sweep wrote {written}")
+        # the same sweep from the checkpoint, in this process
+        trainer = gan.GANTrainer(lcfg, DEV)
+        state = trainer.init_state(freeze_pretrained=lcfg.pretrained_encoder)
+        restore_checkpoint(os.path.join(run, "ckpt"), state)
+        latent = np.random.default_rng(0).standard_normal(
+            (24, lcfg.model.ndim)).astype(np.float32)
+        _, lab = viz.get_samples(trainer, state, test_ds, 0, latent,
+                                 classes=classes)
+        mu_err = max(float(np.abs(np.load(os.path.join(
+            sweep_dir, f"latent_mu_class{c}.npy")) - lab["latent"][c]).max())
+            for c in classes)
+        check(mu_err <= MODEL_TOL, f"sample_sweep's mu differ by {mu_err}")
+        del trainer, state
+        rec["sample_sweep"] = dict(seconds=sweep_s, files=written,
+                                   launches=read_counts())
+        rec["sample_sweep"]["mu_max_abs_err_vs_in_process"] = mu_err
+        say(f"sample_sweep: {sweep_s:.1f} s, {written}, launches "
+            f"{rec['sample_sweep']['launches']}; its mu {mu_err:.3e} from "
+            f"the same sweep in this process (tol {MODEL_TOL:g})")
+
+    # the loop with its grids (the CLI's default)
+    grid_run = os.path.join(work, "grid_run")
+    run_args = dict(data_root=img_root, attr_file=attr_file,
+                    classifier_ckpt=os.path.join(work, "classifier.pth"),
+                    sample_grids=True, echo=False, device=DEV,
+                    decode=loop_out["decode"])
+    steps = []
+    real_step = gan.GANTrainer.step
+
+    def counting(trainer, state, batch, epoch=0):
+        steps.append(1)
+        return real_step(trainer, state, batch, epoch)
+
+    gan.GANTrainer.step = counting
+    try:
+        if has_mpl:
+            t0 = time.perf_counter()
+            loop.train_gan(lcfg, grid_run, epochs=1, **run_args)
+            grid_s = time.perf_counter() - t0
+            pngs = sorted(p for p in os.listdir(grid_run)
+                          if p.endswith(".png"))
+            n_steps = len(steps)
+            interval = max(n_steps // 3, 1)
+            want = [f"progress_e000_i{i:05d}.png"
+                    for i in range(0, n_steps, interval)]
+            check(pngs == want, f"grids {pngs}, the JAX cadence {want}")
+            rec["loop_grids"] = dict(seconds=grid_s, steps=n_steps,
+                                     files=pngs)
+            say(f"train_gan with grids: {n_steps} steps, {pngs} in "
+                f"{grid_s:.1f} s")
+        else:
+            try:
+                loop.train_gan(lcfg, grid_run, epochs=1, **run_args)
+                refused = False
+            except RuntimeError as e:
+                refused = "matplotlib" in str(e)
+            check(refused and not steps and not os.path.exists(grid_run),
+                  "train_gan with grids and no matplotlib did not refuse "
+                  "before its first step")
+            rec["loop_grids"] = dict(refused_before_any_step=True)
+            say("train_gan with grids and no matplotlib: refused before "
+                "any step, nothing written")
+    finally:
+        gan.GANTrainer.step = real_step
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -2070,8 +2504,8 @@ def main():
                                                                 cgen)
     errs["cbinorm_fwd"] = [fwd_err[torch.float32], fwd_err[torch.bfloat16]]
 
-    say(f"== phase 7: gradients of G + E + D at batch {CHECK_BATCH}, "
-        "kernels vs plain norm")
+    say(f"== phase 7: gradients of G + E + D + {SOLO_PRESET}'s conditional "
+        f"E at batch {CHECK_BATCH}, kernels vs plain norm")
     grad_worst = check_gradient_repair(cfg, g_per, e_per)
 
     training, launches, fused_launches = training_phase(
@@ -2095,10 +2529,17 @@ def main():
             evaluation = evaluation_phase(g_per, loop_out, vgg_pth, work,
                                           name, power_limit)
             t3 = time.perf_counter()
+            variants, variant_launches = variants_phase(g_per, e_per, name,
+                                                        power_limit)
+            t4 = time.perf_counter()
+            visualisation = viz_phase(cfg, loop_out, loop_record["probes"],
+                                      work, name, power_limit)
+            t5 = time.perf_counter()
             classifier["phase_s"], vgg["phase_s"] = t1 - t0, t2 - t1
             evaluation["phase_s"] = t3 - t2
-            say(f"phases 11, 12, 13: {t1 - t0:.1f}, {t2 - t1:.1f}, "
-                f"{t3 - t2:.1f} s")
+            variants["phase_s"], visualisation["phase_s"] = t4 - t3, t5 - t4
+            say(f"phases 11, 12, 13, 14, 15: {t1 - t0:.1f}, {t2 - t1:.1f}, "
+                f"{t3 - t2:.1f}, {t4 - t3:.1f}, {t5 - t4:.1f} s")
         finally:
             tempfile.tempdir = saved_tempdir
 
@@ -2129,6 +2570,12 @@ def main():
         if kn == "cbinorm_fwd":
             entry["launches_serving"] = serving["launches"]
         entry["launches_loop"] = loop_launches[kn]
+        entry["launches_variants"] = {key: c[kn] for key, c in
+                                      variant_launches.items()}
+        check(kn == "diversification_fwd"
+              or all(c[kn] > 0 for key, c in variant_launches.items()
+                     if "conventional" not in key),
+              f"{kn} was not launched by a trainer variant")
         if kn in ("cbinorm_fwd", "cbinorm_bwd"):
             entry["launches_classifier_step"] = \
                 classifier["launches_per_step"][kn]
@@ -2166,10 +2613,12 @@ def main():
     say(json.dumps({"training": training}))
     say(json.dumps({"serving": serving}))
     say(json.dumps({"loop": loop_record}))
-    say(f"phases 1-13: {time.perf_counter() - t_script:.1f} s")
+    say(f"phases 1-15: {time.perf_counter() - t_script:.1f} s")
     say(json.dumps({"classifier": classifier}))
     say(json.dumps({"vgg": vgg}))
     say(json.dumps({"evaluation": evaluation}))
+    say(json.dumps({"variants": variants}))
+    say(json.dumps({"visualisation": visualisation}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 """Experiment configuration: the port's own copy of ``srgan_tpu/configs.py``
-for the presets it trains and serves and for the classifier-pretraining and
-PRDC jobs (same field names and defaults), so that a run's ``config.json``
-is the same file for both packages and the presets resolve without JAX."""
+for the presets (every one of ``srgan_tpu/configs.py:280-291``) and for the
+classifier-pretraining and PRDC jobs (same field names and defaults), so
+that a run's ``config.json`` is the same file for both packages and the
+presets resolve without JAX."""
 
 from __future__ import annotations
 
@@ -25,6 +26,10 @@ class LossWeights:
     corr_enc: float = 100.0
     hist: float = 100.0
     cls: float = 1.0
+
+    @classmethod
+    def conventional_kl(klass, **kw) -> "LossWeights":
+        return klass(KL=0.1, batch_KL=0.0, corr_enc=0.0, hist=0.0, **kw)
 
     @classmethod
     def proposed_kl(klass, **kw) -> "LossWeights":
@@ -92,6 +97,38 @@ class ExperimentConfig:
     loss: LossWeights
     trainer: str = "srgan"     # "singlegan" | "singlegan_solo" | "srgan"
     pretrained_encoder: bool = False
+
+
+def conventional_singlegan(unrolled_k: int = 5, idt_reg: float = 0.0,
+                           restriction: str = "conventionalKL"
+                           ) -> ExperimentConfig:
+    """Notebook 01: the SingleGAN baseline with 4 per-domain two-scale Ds
+    and the conditional encoder (``srgan_tpu/configs.py:135-154``); its
+    three arms are ("conventionalKL", k 1, idt_reg 0), ("proposedKL", 1, 0)
+    and ("proposedKL", 5, 0.5)."""
+    lw = (LossWeights.conventional_kl(idt_reg=idt_reg, cls=0.0)
+          if restriction == "conventionalKL"
+          else LossWeights.proposed_kl(idt_reg=idt_reg, cls=0.0))
+    enc_feat = "latent" if restriction == "conventionalKL" else "mu"
+    return ExperimentConfig(
+        name=f"01_singlegan_{restriction}_k{unrolled_k}_idtreg{idt_reg}",
+        model=ModelConfig(),
+        train=TrainConfig(unrolled_k=unrolled_k, encoded_feature=enc_feat),
+        loss=lw,
+        trainer="singlegan",
+    )
+
+
+def singlegan_solod() -> ExperimentConfig:
+    """Notebook 02: SingleGAN with the solo D and its class heads
+    (``srgan_tpu/configs.py:157-165``)."""
+    return ExperimentConfig(
+        name="02_singlegan_soloD",
+        model=ModelConfig(),
+        train=TrainConfig(encoded_feature="mu"),
+        loss=LossWeights.proposed_kl(cls=1.0),
+        trainer="singlegan_solo",
+    )
 
 
 def srgan_nopretraining() -> ExperimentConfig:
@@ -173,10 +210,12 @@ def save_config(cfg: ExperimentConfig, out_dir: str) -> str:
 
 def load_config_for_ckpt(ckpt_path: str, preset: str | None = None
                          ) -> ExperimentConfig:
-    """A ``config.json`` in the weights dir or its parent wins (it reflects
+    """A ``config.json`` in the weights dir, its parent or the run dir two
+    levels up (``run/ckpt/step_N``) wins, the nearest first (it reflects
     the run's actual overrides); otherwise the named preset."""
     p = os.path.abspath(ckpt_path)
-    for cand_dir in (p, os.path.dirname(p)):
+    for cand_dir in (p, os.path.dirname(p),
+                     os.path.dirname(os.path.dirname(p))):
         cand = os.path.join(cand_dir, "config.json")
         if os.path.exists(cand):
             with open(cand) as f:
@@ -193,8 +232,14 @@ def load_config_for_ckpt(ckpt_path: str, preset: str | None = None
     return PRESETS[preset]()
 
 
-# the presets whose trainer (srgan, unconditional Encoder) the port has
 PRESETS = {
+    "01_conventional_singlegan":
+        lambda: conventional_singlegan(1, 0.0, "conventionalKL"),
+    "01_proposed_singlegan_k1":
+        lambda: conventional_singlegan(1, 0.0, "proposedKL"),
+    "01_proposed_singlegan_k5":
+        lambda: conventional_singlegan(5, 0.5, "proposedKL"),
+    "02_singlegan_solod": singlegan_solod,
     "03_srgan_nopretraining": srgan_nopretraining,
     "05_srgan_full": srgan_full,
     # the config srgan_full builds is named "05_srgan_pretrained"

@@ -1,14 +1,19 @@
-"""Solo (StarGAN-style) PatchGAN discriminator, NCHW (counterpart of
-``srgan_tpu/nn/discriminator.py:75-141``).
+"""PatchGAN discriminators, NCHW (counterpart of
+``srgan_tpu/nn/discriminator.py``): the per-domain family (SingleGAN, nb01)
+and the solo one (StarGAN-style, nb02-05).
 
-One discriminator for all domains: a strided-conv trunk with LeakyReLU 0.01
-and no norm at full resolution, the same trunk at half width on an
-``AvgPool2d(3, 2, 1, count_include_pad=False)`` copy, and per scale a
-real/fake patch head and a domain-classification head whose softmax runs
-in fp32 over the class dimension.  Module and key names follow the
-reference's ``SingleDiscriminator_solo_multi`` (the layout of
-``srgan_tpu/utils/checkpoint.py::export_torch_solo_discriminator``), so its
-state dicts load with ``strict=True``.
+Both run a strided-conv trunk with LeakyReLU 0.01 and no norm at full
+resolution and the same trunk at half width on an ``AvgPool2d(3, 2, 1,
+count_include_pad=False)`` copy.  The per-domain D ends each trunk in a
+1-channel patch conv (``conv_out``); the trainer keeps one per domain in an
+``nn.ModuleList``.  The solo D has per scale a real/fake patch head and a
+domain-classification head whose softmax runs in fp32 over the class
+dimension.  Module and key names follow the reference's
+``SingleDiscriminator_original_multi`` and
+``SingleDiscriminator_solo_multi`` (the layouts of
+``srgan_tpu/utils/checkpoint.py::export_torch_original_discriminator`` and
+``export_torch_solo_discriminator``), so their state dicts load with
+``strict=True``.
 """
 
 from __future__ import annotations
@@ -24,10 +29,11 @@ from srgan_tpu_torch.nn.layers import Conv2d, avg_pool2d
 class SingleDiscriminatorSolo(nn.Module):
     """The trunk: 4x4 stride-2 conv to ``nch``, then ``num_cls - 1``
     stride-``reduce`` convs doubling the width up to ``8 * nch``, each
-    followed by LeakyReLU(0.01); no bias, no head."""
+    followed by LeakyReLU(0.01), no bias; ``head`` appends the per-domain
+    D's ``conv_out``."""
 
     def __init__(self, nch_in: int = 3, nch: int = 64, reduce: int = 2,
-                 num_cls: int = 4):
+                 num_cls: int = 4, head: bool = False):
         super().__init__()
         k, p = 2 * reduce, reduce // 2
         layers = [Conv2d(nch_in, nch, 4, 2, 1, bias=False), nn.LeakyReLU(0.01)]
@@ -37,11 +43,42 @@ class SingleDiscriminatorSolo(nn.Module):
             layers += [Conv2d(dim_in, dim_out, k, reduce, p, bias=False),
                        nn.LeakyReLU(0.01)]
             dim_in = dim_out
+        if head:
+            layers.append(Conv2d(dim_in, 1, 4, 1, 1, bias=True))
         self.down_convs = nn.Sequential(*layers)
         self.nch_out = dim_in
 
     def forward(self, x):
         return self.down_convs(x)
+
+
+class SingleDiscriminatorOriginal(SingleDiscriminatorSolo):
+    """One domain's single-scale D: the trunk, then ``conv_out``, a 4x4
+    conv to one channel with bias, at ``down_convs.{2 * num_cls}``
+    (``srgan_tpu/nn/discriminator.py:28-52``)."""
+
+    def __init__(self, nch_in: int = 3, nch: int = 64, reduce: int = 2,
+                 num_cls: int = 4):
+        super().__init__(nch_in, nch, reduce, num_cls, head=True)
+
+
+class SingleDiscriminatorOriginalMulti(nn.Module):
+    """One domain's two-scale D (``srgan_tpu/nn/discriminator.py:55-72``):
+    returns [out1, out2], (B, 1, h, w) patch maps in the compute dtype, of
+    the full-resolution D and of the half-width one on the pooled copy."""
+
+    def __init__(self, nch_in: int = 3, nch: int = 64, reduce: int = 2,
+                 num_cls: int = 4):
+        super().__init__()
+        self.discriminator1 = SingleDiscriminatorOriginal(nch_in, nch, reduce,
+                                                          num_cls)
+        self.discriminator2 = SingleDiscriminatorOriginal(nch_in, nch // 2,
+                                                          reduce, num_cls)
+
+    def forward(self, x):
+        return [self.discriminator1(x),
+                self.discriminator2(avg_pool2d(x, 3, 2, 1,
+                                               count_include_pad=False))]
 
 
 class SingleDiscriminatorSoloMulti(nn.Module):

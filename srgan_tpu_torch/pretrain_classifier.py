@@ -12,6 +12,8 @@ best-accuracy retention) and writes into --out:
   metrics.jsonl         one record a validation
   test_metrics.json     best val accuracy, test accuracy, test_n and the
                         4x4 confusion matrix of the best parameters
+  confusion_matrix.png  that matrix drawn, row-normalised (matplotlib;
+                        --no-confusion-plot skips it)
 
 Examples:
   python -m srgan_tpu_torch.pretrain_classifier --data-root /data/celeba/img \\
@@ -20,7 +22,6 @@ Examples:
       --decode pil --train-num 8 --val-num 2 --test-num 2 --batch-size 8 \\
       --epochs 2 --image-size 64 --e-nch 8 --e-num-cls 2 --out runs/clf_smoke
 
-The confusion-matrix figure waits for the visualisation module (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ import torch
 
 from srgan_tpu_torch.configs import ClassifierConfig
 from srgan_tpu_torch.data import DataLoader, FaceDataset, make_synthetic_celeba
+from srgan_tpu_torch.data.dataset import LABEL_DESCRIPTION
 from srgan_tpu_torch.training.classifier import ClassifierTrainer
+from srgan_tpu_torch.utils import viz
 from srgan_tpu_torch.utils.metrics import MetricLogger
 
 
@@ -66,7 +69,13 @@ def main(argv=None):
     ap.add_argument("--decode", choices=("native", "pil"), default="native",
                     help="the C++ decoder (needs g++, libpng and libjpeg; "
                          "fails if it cannot build) or PIL")
+    ap.add_argument("--no-confusion-plot", action="store_true",
+                    help="write no confusion_matrix.png (it needs "
+                         "matplotlib)")
     args = ap.parse_args(argv)
+    if not args.no_confusion_plot:
+        viz.require_matplotlib("confusion_matrix.png (--no-confusion-plot "
+                               "skips it)")
 
     cfg = ClassifierConfig()
     model_over = {k: v for k, v in dict(
@@ -144,8 +153,13 @@ def main(argv=None):
                        "test_accuracy": test_acc,
                        "test_n": int(len(labels)),
                        "confusion_matrix": cm.tolist()}, f, indent=1)
+        if not args.no_confusion_plot:
+            viz.close(viz.plot_confusion_matrix(
+                cm, [LABEL_DESCRIPTION[i] for i in range(n)],
+                title="Encoder classifier (test)",
+                save_path=os.path.join(args.out, "confusion_matrix.png")))
         print(f"test accuracy: {test_acc:.4f} (confusion matrix in "
-              f"{args.out}/test_metrics.json)")
+              f"{args.out})")
 
 
 if __name__ == "__main__":

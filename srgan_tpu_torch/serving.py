@@ -1,11 +1,13 @@
 """Batch-inference / serving surface of the port (counterpart of
 ``srgan_tpu/serving.py``).
 
-``Translator`` holds a generator and an encoder on one device and answers
-translate / encode requests given as NHWC numpy arrays in [-1, 1], chunked
-at the largest warm batch size.  ``handle_request`` dispatches one request
-body of the npz wire format without any socket; ``make_handler`` wraps it
-for ``http.server`` (see ``srgan_tpu_torch/serve.py``).
+``Translator`` holds a generator and an encoder (of any of the three
+trainers: the SingleGAN ones' encoder is conditional and needs the images'
+labels) on one device and answers translate / encode requests given as
+NHWC numpy arrays in [-1, 1], chunked at the largest warm batch size.
+``handle_request`` dispatches one request body of the npz wire format
+without any socket; ``make_handler`` wraps it for ``http.server`` (see
+``srgan_tpu_torch/serve.py``).
 """
 
 from __future__ import annotations
@@ -28,9 +30,10 @@ class Translator:
 
     ``weights_dir`` holds ``generator.pth`` and ``encoder.pth`` in the
     reference's key layout (as ``scripts/export_torch_checkpoint.py``
-    writes them).  ``warmup`` runs each warm batch size once at
-    construction, so first-request costs (kernel build and load, cuDNN
-    set-up) are paid at start-up.
+    writes them, and as a training checkpoint's ``step_N`` holds them).
+    ``warmup`` runs each warm batch size once at construction, so
+    first-request costs (kernel build and load, cuDNN set-up) are paid at
+    start-up.
     """
 
     def __init__(self, cfg: ExperimentConfig, weights_dir: str,
@@ -67,7 +70,7 @@ class Translator:
                 dummy = np.zeros((b, hw, hw, cfg.model.nch_in), np.float32)
                 self.translate(dummy, np.zeros(b, np.int64),
                                latent=np.zeros((b, self.ndim), np.float32))
-                self.encode(dummy)
+                self.encode(dummy, np.zeros(b, np.int64))
 
     def _autocast(self):
         if not self.bf16:
@@ -108,14 +111,19 @@ class Translator:
             outs.append(fake.float().cpu().numpy())
         return np.concatenate(outs), np.ascontiguousarray(latent)
 
-    def encode(self, images: np.ndarray) -> Dict[str, np.ndarray]:
-        """images: (N, H, W, 3) -> {"mu": (N, ndim), "logvar": (N, ndim)}."""
+    def encode(self, images: np.ndarray, labels: Optional[np.ndarray] = None
+               ) -> Dict[str, np.ndarray]:
+        """images: (N, H, W, 3), labels: (N,), which the conditional encoder
+        needs and the unconditional one ignores -> {"mu": (N, ndim),
+        "logvar": (N, ndim)}."""
         images = np.asarray(images, np.float32)
         mus, logvars = [], []
         for i, size in self._chunks(len(images)):
+            lbl = None if labels is None else \
+                torch.from_numpy(np.asarray(labels)[i:i + size])
             with self._autocast():
                 mu, logvar, _ = gan.encode(
-                    self.E, self._to_device(images[i:i + size]))
+                    self.E, self._to_device(images[i:i + size]), lbl)
             mus.append(mu.float().cpu().numpy())
             logvars.append(logvar.float().cpu().numpy())
         return {"mu": np.concatenate(mus), "logvar": np.concatenate(logvars)}
@@ -139,7 +147,8 @@ def decode_npz(data: bytes) -> Dict[str, np.ndarray]:
 def handle_request(translator: Translator, path: str,
                    body: bytes) -> Tuple[int, bytes]:
     """Answer one POST: ``/translate`` (images, target_labels [, latent,
-    seed]) -> (fakes, latent); ``/encode`` (images) -> (mu, logvar).
+    seed]) -> (fakes, latent); ``/encode`` (images [, labels]) -> (mu,
+    logvar).
     Returns (HTTP status, body): 200 with an npz body, 404 for an unknown
     path, 400 with the error's text for a request that fails."""
     if path not in ("/translate", "/encode"):
@@ -151,7 +160,8 @@ def handle_request(translator: Translator, path: str,
                 req["images"], req["target_labels"],
                 latent=req.get("latent"), seed=int(req.get("seed", 0)))
             return 200, encode_npz(fakes=fakes, latent=latent)
-        return 200, encode_npz(**translator.encode(req["images"]))
+        return 200, encode_npz(**translator.encode(req["images"],
+                                                   labels=req.get("labels")))
     except Exception as e:  # the server keeps running; the client sees why
         return 400, f"{type(e).__name__}: {e}".encode()
 

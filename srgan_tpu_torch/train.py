@@ -1,18 +1,21 @@
-"""Train an SRGAN preset with the port (counterpart of ``scripts/train.py``).
+"""Train a preset with the port (counterpart of ``scripts/train.py``): the
+SRGAN presets 03 and 05 and the SingleGAN baselines 01 (per-domain Ds) and
+02 (solo D), with progress grids by default.
 
 Examples:
   # full SRGAN on CelebA, on the GPU
-  python -m srgan_tpu_torch.train --preset 05_srgan_full --no-sample-grids \\
+  python -m srgan_tpu_torch.train --preset 05_srgan_full \\
       --data-root /data/celeba/img --attr-file /data/celeba/list_attr_celeba.txt \\
       --classifier-ckpt runs/clf/classifier_best.pth --out runs/srgan
 
   # smoke run on synthetic data, on the CPU, PIL decode
-  python -m srgan_tpu_torch.train --preset 03_srgan_nopretraining --synthetic \\
-      --no-sample-grids --device cpu --decode pil --batch-size 16 --epochs 2 \\
-      --unrolled-k 1 --out runs/srgan_smoke
+  python -m srgan_tpu_torch.train --preset 01_proposed_singlegan_k5 \\
+      --synthetic --device cpu --decode pil --batch-size 16 --epochs 2 \\
+      --unrolled-k 1 --out runs/singlegan_smoke
 
-Data parallel (the JAX script's --mesh and --grad-sync) is not ported yet
-(ROADMAP A11), nor are the progress grids (A7): pass --no-sample-grids.
+The grids (progress_e*_i*.png in --out) need matplotlib; --no-sample-grids
+turns them off.  Data parallel (the JAX script's --mesh and --grad-sync) is
+not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -59,7 +62,10 @@ def main(argv=None):
     ap.add_argument("--d-num-cls", type=int)
     ap.add_argument("--e-num-cls", type=int)
     ap.add_argument("--no-sample-grids", action="store_true",
-                    help="required until the progress grids are ported")
+                    help="draw no progress grids (they need matplotlib)")
+    ap.add_argument("--grid-every-epochs", type=int, default=1,
+                    help="draw the progress grids only every N epochs "
+                         "(default 1: the reference's ~3 an epoch)")
     ap.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint in --out")
     ap.add_argument("--profile-dir",
@@ -101,6 +107,7 @@ def main(argv=None):
               attr_file=args.attr_file, label_root=args.label_root,
               epochs=args.epochs, classifier_ckpt=args.classifier_ckpt,
               sample_grids=not args.no_sample_grids,
+              grid_every_epochs=args.grid_every_epochs,
               synthetic_per_class=args.synthetic_per_class,
               resume=args.resume, profile_dir=args.profile_dir,
               debug_nans=args.debug_nans, device=args.device,

@@ -1,7 +1,12 @@
-"""The SRGAN trainer of the port: model construction, the train step and
-the inference surface (counterpart of ``srgan_tpu/training/gan.py``, the
-``srgan`` variant: solo discriminator, unconditional encoder, one device,
-instance norm).
+"""The GAN trainer of the port: model construction, the train step and the
+inference surface (counterpart of ``srgan_tpu/training/gan.py``) on one
+device, instance norm, for its three variants:
+
+  ``singlegan``       nb01: one two-scale D per domain, the conditional
+                      encoder (``EncoderOriginal``), no class loss;
+  ``singlegan_solo``  nb02: the solo D with class heads, the conditional
+                      encoder;
+  ``srgan``           nb03/05: the solo D, the unconditional ``Encoder``.
 
 ``transform`` and ``encode`` and the train step's batch keep the JAX
 package's NHWC layout at their boundary; the models inside run NCHW.
@@ -14,10 +19,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from srgan_tpu_torch.configs import ExperimentConfig
-from srgan_tpu_torch.nn.discriminator import SingleDiscriminatorSoloMulti
-from srgan_tpu_torch.nn.encoder import Encoder
+from srgan_tpu_torch.nn.discriminator import (
+    SingleDiscriminatorOriginalMulti,
+    SingleDiscriminatorSoloMulti,
+)
+from srgan_tpu_torch.nn.encoder import Encoder, EncoderOriginal
 from srgan_tpu_torch.nn.generator import SingleGenerator
 from srgan_tpu_torch.nn.layers import init_torch_default_
 from srgan_tpu_torch.ops import losses as L
@@ -27,6 +36,8 @@ from srgan_tpu_torch.training.state import (
     freeze_encoder_trunk,
     set_lr,
 )
+
+TRAINERS = ("singlegan", "singlegan_solo", "srgan")
 
 
 def resolve_device(device) -> torch.device:
@@ -46,11 +57,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_srgan(cfg: ExperimentConfig):
-    if cfg.trainer != "srgan":
+def _check_config(cfg: ExperimentConfig):
+    if cfg.trainer not in TRAINERS:
+        raise ValueError(f"trainer {cfg.trainer!r}: one of {TRAINERS}")
+    if cfg.model.norm_type != "instance":
         raise NotImplementedError(
-            f"trainer {cfg.trainer!r}: only the srgan trainer's models "
-            "(SingleGenerator + unconditional Encoder) are ported")
+            f"norm_type {cfg.model.norm_type!r}: only instance norm is "
+            "ported (batch norm is ROADMAP A10)")
+
+
+def conditional_encoder(cfg: ExperimentConfig) -> bool:
+    """The SingleGAN trainers' encoder takes the class one-hot."""
+    return cfg.trainer in ("singlegan", "singlegan_solo")
 
 
 def _materialise(module, device, generator: Optional[torch.Generator],
@@ -75,7 +93,7 @@ def build_generator(cfg: ExperimentConfig, device="cuda",
     """The generator of ``cfg`` holding ``state_dict`` (reference key
     layout) or, without one, torch-default init drawn from ``generator``
     (default: seeded with ``cfg.train.seed``)."""
-    _check_srgan(cfg)
+    _check_config(cfg)
     m = cfg.model
     with torch.device("meta"):
         G = SingleGenerator(nch_in=m.nch_in, nch=m.g_nch, reduce=m.g_reduce,
@@ -86,34 +104,48 @@ def build_generator(cfg: ExperimentConfig, device="cuda",
 
 def build_encoder(cfg: ExperimentConfig, device="cuda",
                   generator: Optional[torch.Generator] = None,
-                  state_dict=None) -> Encoder:
-    """The unconditional encoder of ``cfg``, initialised as
-    ``build_generator`` does."""
-    _check_srgan(cfg)
+                  state_dict=None) -> nn.Module:
+    """The encoder of ``cfg``: ``EncoderOriginal`` for the SingleGAN
+    trainers, else ``Encoder``; initialised as ``build_generator`` does."""
+    _check_config(cfg)
     m = cfg.model
-    if m.norm_type != "instance":
-        raise NotImplementedError(
-            f"norm_type {m.norm_type!r}: only instance norm is ported")
     with torch.device("meta"):
-        E = Encoder(nch_in=m.nch_in, nch_out=m.ndim, nch=m.e_nch,
-                    num_cls=m.e_num_cls, num_con=m.n_classes)
+        if conditional_encoder(cfg):
+            E = EncoderOriginal(nch_in=m.nch_in, nch_out=m.ndim, nch=m.e_nch,
+                                num_cls=m.e_num_cls, num_con=m.n_classes)
+        else:
+            E = Encoder(nch_in=m.nch_in, nch_out=m.ndim, nch=m.e_nch,
+                        num_cls=m.e_num_cls, num_con=m.n_classes)
     return _materialise(E, device, generator, cfg.train.seed, state_dict)
 
 
 def build_discriminator(cfg: ExperimentConfig, device="cuda",
                         generator: Optional[torch.Generator] = None,
-                        state_dict=None) -> SingleDiscriminatorSoloMulti:
-    """The solo discriminator of ``cfg``, its class heads sized to the
-    trunks' output maps (``srgan_tpu/training/gan.py:121-126``),
-    initialised as ``build_generator`` does."""
-    _check_srgan(cfg)
+                        state_dict=None) -> nn.Module:
+    """The discriminator of ``cfg``, initialised as ``build_generator``
+    does.  ``singlegan``: an ``nn.ModuleList`` of ``n_classes``
+    ``SingleDiscriminatorOriginalMulti``, drawn in domain order, whose
+    ``state_dict`` may also be a list of one state dict per domain.  Else
+    the solo D, its class heads sized to the trunks' output maps
+    (``srgan_tpu/training/gan.py:116-130``)."""
+    _check_config(cfg)
     m = cfg.model
-    k1 = m.image_size // (2 ** m.d_num_cls)
     with torch.device("meta"):
-        D = SingleDiscriminatorSoloMulti(
-            nch_in=m.nch_in, nch=m.d_nch, reduce=m.d_reduce,
-            num_cls=m.d_num_cls, n_class=m.n_classes,
-            cls_kernels=(k1, k1 // 2))
+        if cfg.trainer == "singlegan":
+            D = nn.ModuleList(
+                SingleDiscriminatorOriginalMulti(
+                    nch_in=m.nch_in, nch=m.d_nch, reduce=m.d_reduce,
+                    num_cls=m.d_num_cls) for _ in range(m.n_classes))
+            if isinstance(state_dict, (list, tuple)):
+                state_dict = {f"{i}.{k}": v
+                              for i, sd in enumerate(state_dict)
+                              for k, v in sd.items()}
+        else:
+            k1 = m.image_size // (2 ** m.d_num_cls)
+            D = SingleDiscriminatorSoloMulti(
+                nch_in=m.nch_in, nch=m.d_nch, reduce=m.d_reduce,
+                num_cls=m.d_num_cls, n_class=m.n_classes,
+                cls_kernels=(k1, k1 // 2))
     return _materialise(D, device, generator, cfg.train.seed, state_dict)
 
 
@@ -140,9 +172,19 @@ def transform(G: SingleGenerator, images: torch.Tensor, target_labels,
 
 
 @torch.inference_mode()
-def encode(E: Encoder, images: torch.Tensor):
-    """Encoder forward on (N, H, W, C) images: (mu, logvar, class_out)."""
-    return E(images.permute(0, 3, 1, 2).contiguous())
+def encode(E: nn.Module, images: torch.Tensor, labels=None):
+    """Encoder forward on (N, H, W, C) images: (mu, logvar, class_out);
+    class_out is None for the conditional encoder, which needs the images'
+    ``labels`` (N,) (``srgan_tpu/training/gan.py:624-628``); the
+    unconditional one ignores them."""
+    x = images.permute(0, 3, 1, 2).contiguous()
+    if isinstance(E, EncoderOriginal):
+        if labels is None:
+            raise ValueError("the conditional encoder (SingleGAN trainers) "
+                             "needs the images' labels")
+        _, mu, logvar = E(x, onehot(labels, E.num_con).to(x.device))
+        return mu, logvar, None
+    return E(x)
 
 
 def _g_pair(G, x1, c1, x2, c2):
@@ -168,36 +210,39 @@ def _apply_grads(loss, *opts: torch.optim.Optimizer):
 
 
 class GANTrainer:
-    """The ``srgan`` train step of ``srgan_tpu/training/gan.py:235-511`` on
-    one device: ``k - 1`` unrolled D updates, then phase 1 (the k-th D
-    update and one joint G/E gradient of errG + errE), then phase 2 (a G
-    step on the style regression, with fresh forwards at the phase-1
-    parameters).
+    """The train step of ``srgan_tpu/training/gan.py:235-511`` on one
+    device: ``k - 1`` unrolled D updates, then phase 1 (the k-th D update
+    and one joint G/E gradient of errG + errE), then phase 2 (a G step on
+    the style regression, with fresh forwards at the phase-1 parameters).
 
-    Every standard-normal draw of the step (the k latents, with
-    ``encoded_feature="mu"``) goes through ``_draw_latent``, in the JAX
-    step's order, from ``self.rng``; tests override the seam to inject the
-    JAX side's draws.  ``compute_dtype="bfloat16"`` runs the
-    forwards under ``torch.autocast``, as serving does; the losses are fp32.
+    ``singlegan`` runs every domain's D on the whole batch with the LSGAN
+    loss masked by source (real half) and target (fake half); D's gradient
+    is that of the sum over the domains and ``errD`` their mean (quirk
+    #14); a domain absent from the batch adds 0 (quirk #15) and its D still
+    takes its Adam step on zero gradients.  ``encoded_feature="latent"``
+    feeds G a reparametrised style, ``unrolled_restore=True`` rolls D's
+    parameters (not Adam's moments) back to their values after the first
+    of the k updates.
+
+    Every standard-normal draw of the step (the k latents, the
+    reparametrisation's noise, phase 2's SingleGAN identity target) goes
+    through ``_draw_latent``, in the JAX step's order, from ``self.rng``;
+    tests override the seam to inject the JAX side's draws.
+    ``compute_dtype="bfloat16"`` runs the forwards under ``torch.autocast``,
+    as serving does; the losses are fp32.
     """
 
     def __init__(self, cfg: ExperimentConfig, device="cuda"):
-        _check_srgan(cfg)
-        if cfg.model.norm_type != "instance":
-            raise NotImplementedError(
-                f"norm_type {cfg.model.norm_type!r}: only instance norm is "
-                "ported")
-        if cfg.train.unrolled_restore:
-            raise NotImplementedError("unrolled_restore=True is not ported; "
-                                      "D keeps all k updates")
+        _check_config(cfg)
         if cfg.train.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r}: "
                              "float32 or bfloat16")
-        if cfg.train.encoded_feature != "mu":
-            raise NotImplementedError(
-                f"encoded_feature {cfg.train.encoded_feature!r}: only 'mu' "
-                "(the srgan presets' setting) is ported")
+        if cfg.train.encoded_feature not in ("mu", "latent"):
+            raise ValueError(f"encoded_feature {cfg.train.encoded_feature!r}"
+                             ": 'mu' or 'latent'")
         self.cfg = cfg
+        self.per_domain = cfg.trainer == "singlegan"
+        self.conditional_e = conditional_encoder(cfg)
         self.device = resolve_device(device)
         self.bf16 = cfg.train.compute_dtype == "bfloat16"
         self.rng = torch.Generator(device=self.device).manual_seed(
@@ -210,8 +255,9 @@ class GANTrainer:
                    freeze_pretrained: bool = False) -> GANTrainState:
         """G, D and E hold the given state dicts (reference key layout, as
         the converters of ``utils/checkpoint.py`` make them from JAX
-        parameter trees) or, where one is None, torch-default init drawn in
-        the order G, D, E from ``generator`` (default: one seeded with
+        parameter trees; for ``singlegan``'s D a list of one per domain
+        too) or, where one is None, torch-default init drawn in the order
+        G, D, E from ``generator`` (default: one seeded with
         ``cfg.train.seed``).  ``hist_target`` (bins,) is the imitation
         target; without one it is drawn from ``generator`` when the
         histogram loss is on.  ``freeze_pretrained`` trains only
@@ -223,8 +269,11 @@ class GANTrainer:
 
         def own(sd):
             # the step updates parameters in place: never the caller's
-            return None if sd is None else {
-                k: torch.as_tensor(v).clone() for k, v in sd.items()}
+            if sd is None:
+                return None
+            if isinstance(sd, (list, tuple)):
+                return [own(d) for d in sd]
+            return {k: torch.as_tensor(v).clone() for k, v in sd.items()}
 
         G = build_generator(cfg, self.device, generator, own(g_state))
         D = build_discriminator(cfg, self.device, generator, own(d_state))
@@ -260,19 +309,45 @@ class GANTrainer:
         """The seam of every standard-normal draw inside the step."""
         return torch.randn(shape, generator=self.rng, device=self.device)
 
+    def _sample_latent(self, mu, logvar):
+        """eps * exp(logvar / 2) + mu (``srgan_tpu/training/gan.py:
+        271-273``)."""
+        eps = self._draw_latent(tuple(mu.shape))
+        return eps * torch.exp(0.5 * logvar) + mu
+
     def _autocast(self):
         if not self.bf16:
             return contextlib.nullcontext()
         return torch.autocast(self.device.type, dtype=torch.bfloat16)
 
+    def _E(self, E, x, oh):
+        """(mu, logvar) of E on x; ``oh`` is the conditional E's one-hot."""
+        if self.conditional_e:
+            return E(x, oh)[1:]
+        return E(x)[:2]
+
     # ------------------------------------------------------------------
-    def _d_update(self, st: GANTrainState, images, fake, onehot_src):
+    def _d_update(self, st: GANTrainState, images, fake, onehot_src,
+                  src, tgt):
         """One D step on real + detached fake as one 2B forward; returns
-        errD (``srgan_tpu/training/gan.py:289-303``)."""
+        errD, for ``singlegan`` the mean over the domains
+        (``srgan_tpu/training/gan.py:289-317``)."""
         lw = self.cfg.loss
         B = images.shape[0]
+        both = torch.cat([images, fake.detach()], 0)
+        if self.per_domain:
+            total = 0.0
+            for i, Di in enumerate(st.D):
+                with self._autocast():
+                    adv = Di(both)
+                total = total + (
+                    L.masked_lsgan_loss([a[:B] for a in adv], 1.0, src == i)
+                    + L.masked_lsgan_loss([a[B:] for a in adv], 0.0,
+                                          tgt == i))
+            _apply_grads(total, st.opt_d)
+            return total.detach() / len(st.D)
         with self._autocast():
-            adv, cls = st.D(torch.cat([images, fake.detach()], 0))
+            adv, cls = st.D(both)
         errD = L.lsgan_loss([a[:B] for a in adv], 1.0)
         if lw.cls > 0:
             errD = errD + lw.cls * L.domain_classification_loss(
@@ -280,6 +355,28 @@ class GANTrainer:
         errD = errD + L.lsgan_loss([a[B:] for a in adv], 0.0)
         _apply_grads(errD, st.opt_d)
         return errD.detach()
+
+    def _g_adversarial(self, D, fake, onehot_tgt, tgt):
+        """G's adversarial (+ class) loss on the fakes against D at its
+        post-k-update parameters; per domain, each D's masked LSGAN over
+        the domain's targets, divided by the number of domains
+        (``srgan_tpu/training/gan.py:356-367``)."""
+        lw = self.cfg.loss
+        if self.per_domain:
+            errG = 0.0
+            for i, Di in enumerate(D):
+                with self._autocast():
+                    adv = Di(fake)
+                errG = errG + L.masked_lsgan_loss(adv, 1.0, tgt == i) \
+                    / len(D)
+            return errG
+        with self._autocast():
+            adv, cls_out = D(fake)
+        errG = L.lsgan_loss(adv, 1.0)
+        if lw.cls > 0:
+            errG = errG + lw.cls * L.domain_classification_loss(cls_out,
+                                                                onehot_tgt)
+        return errG
 
     def step(self, state: GANTrainState, batch: Dict[str, Any],
              epoch: int = 0) -> Dict[str, torch.Tensor]:
@@ -290,6 +387,7 @@ class GANTrainer:
         cfg, lw = self.cfg, self.cfg.loss
         k, ndim = cfg.train.unrolled_k, cfg.model.ndim
         n_classes = cfg.model.n_classes
+        use_latent = cfg.train.encoded_feature == "latent"
         G, D, E = state.G, state.D, state.E
         lr_g, lr_d, lr_e = self.lr_at(epoch)
         set_lr(state.opt_g, lr_g)
@@ -299,9 +397,19 @@ class GANTrainer:
         images = torch.as_tensor(batch["image"], dtype=torch.float32,
                                  device=self.device).permute(0, 3, 1, 2) \
             .contiguous()
-        onehot_src = onehot(batch["source_label"], n_classes).to(self.device)
-        onehot_tgt = onehot(batch["target_label"], n_classes).to(self.device)
+        src = torch.as_tensor(batch["source_label"]).to(self.device)
+        tgt = torch.as_tensor(batch["target_label"]).to(self.device)
+        onehot_src = onehot(src, n_classes)
+        onehot_tgt = onehot(tgt, n_classes)
         B = images.shape[0]
+        snapshot = None
+
+        def take_snapshot():
+            # a copy: the reference's state_dict() snapshot aliased the
+            # parameters Adam updates in place (module docstring of
+            # srgan_tpu/training/gan.py)
+            return [p.detach().clone() for p in D.parameters()] \
+                if cfg.train.unrolled_restore else None
 
         # ---- k - 1 unrolled D updates, each with a fresh latent
         errD0 = None
@@ -309,9 +417,10 @@ class GANTrainer:
             latent = self._draw_latent((B, ndim))
             with torch.no_grad(), self._autocast():
                 fake = G(images, torch.cat([onehot_tgt, latent], 1))
-            errD = self._d_update(state, images, fake, onehot_src)
+            errD = self._d_update(state, images, fake, onehot_src, src, tgt)
             if i == 0:
                 errD0 = errD
+                snapshot = take_snapshot()
 
         # ---- phase 1: the k-th fake, computed once: its detached value
         # drives the k-th D update and its graph serves the G/E gradient
@@ -319,26 +428,27 @@ class GANTrainer:
         cond_fake = torch.cat([onehot_tgt, latent], 1)
         with self._autocast():
             fake = G(images, cond_fake)
-        errD_last = self._d_update(state, images, fake, onehot_src)
+        errD_last = self._d_update(state, images, fake, onehot_src, src, tgt)
         if errD0 is None:
             errD0 = errD_last
+            snapshot = take_snapshot()
 
         metrics: Dict[str, torch.Tensor] = {}
         with self._autocast():
-            # encoded_feature "mu": the style code is mu itself, no draw
-            mu, logvar, _ = E(images)
-            style = torch.cat([onehot_src, mu], 1)
+            mu, logvar = self._E(E, images, onehot_src)
+        # "latent": a fresh reparametrised style for each G call; "mu": mu
+        style_recon = self._sample_latent(mu, logvar) if use_latent else mu
+        with self._autocast():
             if lw.idt > 0:
-                recon, idt_img = _g_pair(G, fake, style, images, style)
+                style_idt = (self._sample_latent(mu, logvar) if use_latent
+                             else mu)
+                recon, idt_img = _g_pair(
+                    G, fake, torch.cat([onehot_src, style_recon], 1),
+                    images, torch.cat([onehot_src, style_idt], 1))
             else:
-                recon = G(fake, style)
-            # D at its post-k-update parameters; only the G/E parameters
-            # get a gradient (``_apply_grads``)
-            adv, cls_out = D(fake)
-        errG = L.lsgan_loss(adv, 1.0)
-        if lw.cls > 0:
-            errG = errG + lw.cls * L.domain_classification_loss(cls_out,
-                                                                onehot_tgt)
+                recon = G(fake, torch.cat([onehot_src, style_recon], 1))
+        # only the G/E parameters get a gradient (``_apply_grads``)
+        errG = self._g_adversarial(D, fake, onehot_tgt, tgt)
         err_cycle = L.l1_loss(images, recon)
         errG = errG + lw.cycle * err_cycle
         metrics["loss_cycle"] = err_cycle
@@ -357,20 +467,36 @@ class GANTrainer:
 
         # ---- phase 2: G alone on the style regression, fresh forwards at
         # the phase-1-updated parameters
-        with self._autocast():
-            if lw.idt_reg * lw.idt > 0:
-                with torch.no_grad():
-                    mu_s = E(images)[0]
-                fake2, idt2 = _g_pair(G, images, cond_fake, images,
-                                      torch.cat([onehot_src, mu_s], 1))
-                mu_both = E(torch.cat([fake2, idt2], 0))[0]
-                errG_ex = lw.reg * L.l1_loss(latent, mu_both[:B]) \
-                    + L.l1_loss(mu_s, mu_both[B:]) * lw.idt_reg \
-                    * (lw.idt / lw.cycle)
+        if lw.idt_reg * lw.idt > 0:
+            if self.conditional_e:
+                # SingleGAN flavour: a random source-style identity image
+                reg_target = self._draw_latent((B, ndim))
+                style = reg_target
             else:
-                mu_t = E(G(images, cond_fake))[0]
-                errG_ex = lw.reg * L.l1_loss(latent, mu_t)
+                # SRGAN flavour: an encoder-driven identity image
+                with torch.no_grad(), self._autocast():
+                    reg_target, logvar_s = self._E(E, images, None)
+                style = (self._sample_latent(reg_target, logvar_s)
+                         if use_latent else reg_target)
+            with self._autocast():
+                fake2, idt2 = _g_pair(G, images, cond_fake, images,
+                                      torch.cat([onehot_src, style], 1))
+                mu_both = self._E(E, torch.cat([fake2, idt2], 0),
+                                  torch.cat([onehot_tgt, onehot_src], 0))[0]
+            errG_ex = lw.reg * L.l1_loss(latent, mu_both[:B]) \
+                + L.l1_loss(reg_target, mu_both[B:]) * lw.idt_reg \
+                * (lw.idt / lw.cycle)
+        else:
+            with self._autocast():
+                mu_t = self._E(E, G(images, cond_fake), onehot_tgt)[0]
+            errG_ex = lw.reg * L.l1_loss(latent, mu_t)
         _apply_grads(errG_ex, state.opt_g)
+        if snapshot is not None:
+            # D's parameters back to the post-first-update values; Adam's
+            # moments keep all k updates (srgan_tpu/training/gan.py:506)
+            with torch.no_grad():
+                for p, v in zip(D.parameters(), snapshot):
+                    p.copy_(v)
         state.step += 1
 
         metrics = {key: v.detach() for key, v in metrics.items()}

@@ -3,9 +3,10 @@ notebook training cells (nb01/03/05 cell 22) as a function.
 
 ``train_gan`` iterates a shuffled loader once per epoch with the target
 labels sampled per batch, logs the metrics about three times an epoch to a
-JSONL file, checkpoints every ``checkpoint_every`` epochs and at the end,
-resumes from its latest checkpoint, and on SIGTERM or SIGINT finishes the
-step, checkpoints and stops.  Batches reach the device through
+JSONL file and draws a progress grid at each log (thinned by
+``grid_every_epochs``), checkpoints every ``checkpoint_every`` epochs and
+at the end, resumes from its latest checkpoint, and on SIGTERM or SIGINT
+finishes the step, checkpoints and stops.  Batches reach the device through
 ``prefetch_to_device``.
 """
 
@@ -26,9 +27,11 @@ from srgan_tpu_torch.configs import (
     save_config,
 )
 from srgan_tpu_torch.data import DataLoader, FaceDataset, make_synthetic_celeba
+from srgan_tpu_torch.data.dataset import LABEL_DESCRIPTION
 from srgan_tpu_torch.data.loader import prefetch_to_device
 from srgan_tpu_torch.training.gan import GANTrainer, resolve_device
 from srgan_tpu_torch.training.state import TRAINABLE_WHEN_FROZEN
+from srgan_tpu_torch.utils import viz
 from srgan_tpu_torch.utils.checkpoint import (
     latest_step,
     load_state_dict_file,
@@ -114,6 +117,7 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
               epochs: Optional[int] = None,
               classifier_ckpt: Optional[str] = None,
               sample_grids: bool = True,
+              grid_every_epochs: int = 1,
               checkpoint_every: int = 3,
               synthetic_per_class: int = 16,
               echo: bool = True,
@@ -131,13 +135,13 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
     generator and the step's draws started again from their seeds, as the
     JAX loop does.  ``debug_nans`` raises at the first non-finite metric.
     ``profile_dir`` receives a ``torch.profiler`` trace of the whole run.
-    The progress grids (``sample_grids``) need the visualisation module,
-    which is not ported yet."""
+    ``sample_grids`` writes ``progress_e{epoch:03d}_i{it:05d}.png`` of a
+    test-split image at every log of every ``grid_every_epochs``-th epoch
+    (``srgan_tpu/training/loop.py:191-210``); it needs matplotlib, and
+    raises before anything else where it is missing."""
     if sample_grids:
-        raise NotImplementedError(
-            "sample_grids=True needs utils/viz.py::training_progress_grid, "
-            "which is not ported yet (ROADMAP A7); pass sample_grids=False "
-            "(the CLI's --no-sample-grids)")
+        viz.require_matplotlib("sample_grids=True (the CLI's default; "
+                               "--no-sample-grids turns the grids off)")
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     cfg_json = os.path.join(out_dir, "config.json")
@@ -145,7 +149,7 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
         _check_resume_config(cfg, cfg_json)
     else:
         save_config(cfg, out_dir)
-    train_ds, _ = build_datasets(
+    train_ds, sample_ds = build_datasets(
         cfg, data_root, attr_file, label_root,
         synthetic_dir=synthetic_dir_override,
         synthetic_per_class=synthetic_per_class)
@@ -195,6 +199,8 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
     # the state's step survives checkpoint and restore, so the logged step
     # column rises across a resume
     step = state.step
+    # the grids' random latents, apart from the step's draws
+    grid_gen = torch.Generator().manual_seed(cfg.train.seed + 2)
     profiler = None
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
@@ -220,6 +226,15 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
                     values = {k: float(v) for k, v in metrics.items()}
                     logger.log(values, epoch=epoch, step=step,
                                images_per_sec=timer.images_per_sec)
+                    if (sample_grids and len(sample_ds)
+                            and epoch % max(grid_every_epochs, 1) == 0):
+                        fig = viz.training_progress_grid(
+                            trainer, state, sample_ds,
+                            min(53, len(sample_ds) - 1), LABEL_DESCRIPTION,
+                            generator=grid_gen)
+                        fig.savefig(os.path.join(
+                            out_dir, f"progress_e{epoch:03d}_i{it:05d}.png"))
+                        viz.close(fig)
             # step = epochs completed, as the stop and final saves and the
             # resume (which re-enters at epoch == step) count
             if checkpoint_every and epoch % checkpoint_every == 0:

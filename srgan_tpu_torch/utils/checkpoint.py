@@ -3,8 +3,9 @@ package's parameter trees.
 
 Counterpart of the torch export in ``srgan_tpu/utils/checkpoint.py:339-529``:
 the same key layout (the reference's ``SingleGenerator``, ``Encoder``,
-``Encoder_classifier`` and ``SingleDiscriminator_solo_multi``, and
-torchvision's ``vgg19_bn``), computed from parameter trees given as
+``EncoderOriginal``, ``Encoder_classifier``,
+``SingleDiscriminator_solo_multi`` and ``SingleDiscriminator_original_multi``,
+and torchvision's ``vgg19_bn``), computed from parameter trees given as
 nested dicts of numpy arrays, so the port needs no JAX to read them.
 ``load_state_dict_file`` reads the ``generator.pth`` / ``encoder.pth`` that
 ``scripts/export_torch_checkpoint.py`` writes.
@@ -12,7 +13,9 @@ nested dicts of numpy arrays, so the port needs no JAX to read them.
 ``save_checkpoint`` / ``restore_checkpoint`` keep a training state under
 ``<path>/step_N/`` (the JAX package's layout of its orbax directories,
 ``srgan_tpu/utils/checkpoint.py:68-108``): G, D and E as ``generator.pth``,
-``discriminator.pth`` and ``encoder.pth`` in the reference key layout, and
+``discriminator.pth`` and ``encoder.pth`` in the reference key layout (the
+per-domain Ds of the ``singlegan`` trainer as one ``nn.ModuleList``, each
+domain's keys under ``{i}.``), and
 the three Adam state dicts, the step and the histogram target in
 ``train_state.pth``.  The orbax format is the JAX package's and is not read
 here.
@@ -23,7 +26,7 @@ from __future__ import annotations
 import os
 import re
 import shutil
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -89,7 +92,7 @@ def generator_state_dict_from_jax(params: Mapping, num_cls: int = 2,
     return ex.sd
 
 
-def _encoder_trunk(ex: _Exporter, num_cls: int):
+def _encoder_trunk(ex: _Exporter, num_cls: int, conditional: bool = False):
     ex.put("first_layer.weight", ("first_layer", "kernel"), _inv_conv_w)
     ex.put("first_layer.bias", ("first_layer", "bias"), _vec)
     for i in range(num_cls):
@@ -102,6 +105,9 @@ def _encoder_trunk(ex: _Exporter, num_cls: int):
                                                  "kernel"), _inv_conv_w)
         ex.put(f"layers.{i}.shortcut.1.bias", (blk, "shortcut_conv", "bias"),
                _vec)
+        if conditional:
+            ex.cbinorm(f"layers.{i}.cnorm1", (blk, "cnorm1"))
+            ex.cbinorm(f"layers.{i}.cnorm2", (blk, "cnorm2"))
 
 
 def _heads(ex: _Exporter, heads):
@@ -117,6 +123,18 @@ def encoder_state_dict_from_jax(params: Mapping, num_cls: int = 4
     ex = _Exporter(params)
     _encoder_trunk(ex, num_cls)
     _heads(ex, ("fcmean", "fcvar", "fcclass"))
+    return ex.sd
+
+
+def encoder_original_state_dict_from_jax(params: Mapping, num_cls: int = 4
+                                         ) -> Dict[str, torch.Tensor]:
+    """JAX ``EncoderOriginal`` (conditional) params -> the port's
+    ``EncoderOriginal`` state dict: the trunk with each block's
+    ``cnorm1`` / ``cnorm2``, ``fcmean`` and ``fcvar``
+    (``srgan_tpu/utils/checkpoint.py:439-467``, ``conditional=True``)."""
+    ex = _Exporter(params)
+    _encoder_trunk(ex, num_cls, conditional=True)
+    _heads(ex, ("fcmean", "fcvar"))
     return ex.sd
 
 
@@ -149,6 +167,40 @@ def solo_discriminator_state_dict_from_jax(params: Mapping, num_cls: int = 4
         ex.put(f"{name}.0.weight", (name, "kernel"), _inv_conv_w)
         ex.put(f"{name}.0.bias", (name, "bias"), _vec)
     return ex.sd
+
+
+def original_discriminator_state_dict_from_jax(params: Mapping,
+                                              num_cls: int = 4
+                                              ) -> Dict[str, torch.Tensor]:
+    """One domain's JAX ``SingleDiscriminatorOriginalMulti`` params -> the
+    port's state dict of that D (``conv_out`` at ``down_convs.{2 *
+    num_cls}``, ``srgan_tpu/utils/checkpoint.py:405-422``)."""
+    ex = _Exporter(params)
+    for trunk in ("discriminator1", "discriminator2"):
+        for i in range(num_cls):
+            ex.put(f"{trunk}.down_convs.{2 * i}.weight",
+                   (trunk, f"conv_{i}", "kernel"), _inv_conv_w)
+        ex.put(f"{trunk}.down_convs.{2 * num_cls}.weight",
+               (trunk, "conv_out", "kernel"), _inv_conv_w)
+        ex.put(f"{trunk}.down_convs.{2 * num_cls}.bias",
+               (trunk, "conv_out", "bias"), _vec)
+    return ex.sd
+
+
+def per_domain_discriminator_state_dicts_from_jax(
+        params: Mapping, num_cls: int = 4) -> List[Dict[str, torch.Tensor]]:
+    """The ``singlegan`` trainer's D params, the domains' trees stacked on a
+    leading axis (``srgan_tpu/training/gan.py:556-560``) -> one state dict
+    per domain, as the reference's ``netD`` list holds them."""
+    def take(node, i):
+        if isinstance(node, Mapping):
+            return {k: take(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    n = len(np.asarray(params["discriminator1"]["conv_0"]["kernel"]))
+    return [original_discriminator_state_dict_from_jax(take(params, i),
+                                                       num_cls)
+            for i in range(n)]
 
 
 def vgg_state_dict_from_jax(params: Mapping, batch_stats: Mapping

@@ -235,6 +235,9 @@ def test_cli_pretrains_on_the_cpu(tmp_path):
     assert 0.0 <= m["test_accuracy"] <= 1.0
     assert np.asarray(m["confusion_matrix"]).shape == (4, 4)
     assert m["test_n"] == 8 == np.sum(m["confusion_matrix"])
+    # the figure of that matrix, as scripts/pretrain_classifier.py:123-128
+    # draws it
+    assert (out / "confusion_matrix.png").stat().st_size > 0
     recs = [json.loads(line) for line in open(out / "metrics.jsonl")]
     assert [rec["epoch"] for rec in recs] == [0]
     assert m["best_val_accuracy"] == recs[0]["val_accuracy"]

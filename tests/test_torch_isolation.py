@@ -1,6 +1,6 @@
 """The port stands alone: it imports nothing of JAX or srgan_tpu (nor PIL
-when a module is imported), ships no binary, and never carries on on the
-CPU when CUDA is asked for."""
+or matplotlib when a module is imported), ships no binary, and never
+carries on on the CPU when CUDA is asked for."""
 
 import os
 import subprocess
@@ -23,7 +23,8 @@ spec = importlib.util.spec_from_file_location("chip_smoke",
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "srgan_tpu", "triton", "PIL"))
+                                    "srgan_tpu", "triton", "PIL",
+                                    "matplotlib"))
 ported = sorted(m for m in sys.modules if m.startswith("srgan_tpu_torch"))
 print("IMPORTED", len(ported))
 print("MODULES", " ".join(ported))
@@ -31,8 +32,8 @@ print("BAD", bad)
 """
 
 # the modules of the data feed, the loop, the CLIs and the evaluation, which
-# import no PIL either (the card's host may lack it; it is imported where it
-# is used)
+# import no PIL or matplotlib either (the card's host may lack them; they
+# are imported where they are used)
 FEED = ("srgan_tpu_torch.data", "srgan_tpu_torch.data.attributes",
         "srgan_tpu_torch.data.dataset", "srgan_tpu_torch.data.loader",
         "srgan_tpu_torch.data.native", "srgan_tpu_torch.data.sampling",
@@ -46,7 +47,11 @@ FEED = ("srgan_tpu_torch.data", "srgan_tpu_torch.data.attributes",
         "srgan_tpu_torch.training.classifier",
         "srgan_tpu_torch.training.vgg_finetune",
         "srgan_tpu_torch.pretrain_classifier", "srgan_tpu_torch.finetune_vgg",
-        "srgan_tpu_torch.evaluate_prdc")
+        "srgan_tpu_torch.evaluate_prdc",
+        # visualisation (matplotlib and PIL imported where they draw) and
+        # its CLIs, and the server
+        "srgan_tpu_torch.utils.viz", "srgan_tpu_torch.sample_sweep",
+        "srgan_tpu_torch.plot_losses", "srgan_tpu_torch.serve")
 
 
 def test_port_and_chip_smoke_import_no_jax_or_srgan_tpu():
@@ -57,7 +62,7 @@ def test_port_and_chip_smoke_import_no_jax_or_srgan_tpu():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 37, r.stdout
+    assert n >= 40, r.stdout
     modules = r.stdout.split("MODULES")[1].split("\n")[0].split()
     assert set(FEED) <= set(modules), sorted(set(FEED) - set(modules))
 
@@ -140,7 +145,7 @@ def test_norm_output_carries_the_gradient():
 
 
 @pytest.mark.parametrize("cli", ["pretrain_classifier", "finetune_vgg",
-                                 "evaluate_prdc"])
+                                 "evaluate_prdc", "sample_sweep"])
 def test_new_clis_refuse_cuda_without_it(tmp_path, cli):
     """Each CLI defaults to the card and, without CUDA, stops before it
     reads any data instead of carrying on on the CPU."""
@@ -148,7 +153,7 @@ def test_new_clis_refuse_cuda_without_it(tmp_path, cli):
         pytest.skip("this machine has CUDA")
     args = [sys.executable, "-m", f"srgan_tpu_torch.{cli}", "--out",
             str(tmp_path / "out")]
-    if cli == "evaluate_prdc":
+    if cli in ("evaluate_prdc", "sample_sweep"):
         args += ["--ckpt", str(tmp_path / "ckpt"), "--preset",
                  "05_srgan_full"]
     else:

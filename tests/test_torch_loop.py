@@ -12,6 +12,7 @@ loop holds every logged loss within 1e-4 relative, the tolerance of
 """
 
 import dataclasses
+import importlib.util
 import json
 import os
 import signal
@@ -206,12 +207,18 @@ def test_resume_with_different_config_refuses(tmp_path, data):
         assert json.load(f)["train"]["epochs"] == cfg.train.epochs
 
 
-def test_train_gan_refusals(tmp_path, data):
+def test_train_gan_refusals(tmp_path, data, monkeypatch):
     with pytest.raises(ValueError, match="classifier_ckpt"):
         _train(tiny_cfg(pretrained=True), tmp_path / "a", data, epochs=1)
-    with pytest.raises(NotImplementedError, match="A7"):
+    # grids without matplotlib: refused before anything is written
+    real_find_spec = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: None
+                        if name == "matplotlib" else real_find_spec(name, *a))
+    with pytest.raises(RuntimeError, match="matplotlib"):
         _train(tiny_cfg(), tmp_path / "b", data, epochs=1,
                sample_grids=True)
+    assert not os.path.exists(tmp_path / "b")
+    monkeypatch.undo()
     with pytest.raises(ValueError, match="orbax"):
         _train(tiny_cfg(pretrained=True), tmp_path / "c", data, epochs=1,
                classifier_ckpt=str(tmp_path / "classifier_best"))
@@ -356,13 +363,14 @@ def test_train_gan_matches_jax_train_gan(tmp_path, data, monkeypatch):
 
 # ---------------------------------------------------------------- the CLI
 
-def _cli(tmp_path, *extra):
+def _cli(tmp_path, *extra, preset="03_srgan_nopretraining",
+         grids=("--no-sample-grids",), k=("--unrolled-k", "1")):
     args = [sys.executable, "-m", "srgan_tpu_torch.train",
-            "--preset", "03_srgan_nopretraining", "--synthetic",
-            "--no-sample-grids", "--out", str(tmp_path / "run"),
+            "--preset", preset, "--synthetic", *grids,
+            "--out", str(tmp_path / "run"),
             "--image-size", "64", "--g-nch", "8", "--d-nch", "8",
             "--e-nch", "8", "--g-res-num", "1", "--d-num-cls", "2",
-            "--e-num-cls", "2", "--batch-size", "8", "--unrolled-k", "1",
+            "--e-num-cls", "2", "--batch-size", "8", *k,
             "--train-num", "8", "--synthetic-per-class", str(PER_CLASS),
             "--epochs", "1", *extra]
     env = dict(os.environ, TMPDIR=str(tmp_path))
@@ -381,6 +389,32 @@ def test_cli_trains_one_epoch_on_the_cpu(tmp_path):
         stored = json.load(f)
     assert stored["train"]["test_num"] == 4
     assert stored["model"]["g_nch"] == 8
+
+
+def test_cli_trains_a_singlegan_preset_with_grids(tmp_path):
+    """The nb01 preset at its k = 5 with the CLI's default grids: the JAX
+    loop's names, one a log (3 steps an epoch, a log at each), and the
+    run's config.json the preset's with the overrides; then a resume to a
+    second epoch from the checkpoint of the four per-domain Ds."""
+    r = _cli(tmp_path, "--device", "cpu", "--decode", "pil",
+             preset="01_proposed_singlegan_k5", grids=(), k=())
+    assert r.returncode == 0, r.stderr[-3000:]
+    run = tmp_path / "run"
+    assert sorted(p for p in os.listdir(run) if p.endswith(".png")) == [
+        f"progress_e000_i{i:05d}.png" for i in range(3)]
+    with open(run / "config.json") as f:
+        stored = json.load(f)
+    assert stored["trainer"] == "singlegan"
+    assert stored["train"]["unrolled_k"] == 5
+    assert [rec["step"] for rec in _records(run)] == [1, 2, 3]
+    r = _cli(tmp_path, "--device", "cpu", "--decode", "pil", "--resume",
+             "--epochs", "2", "--no-sample-grids",
+             preset="01_proposed_singlegan_k5",
+             grids=(), k=())
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "resumed from epoch 1" in r.stdout
+    assert [rec["step"] for rec in _records(run)] == [1, 2, 3, 4, 5, 6]
+    assert sorted(os.listdir(run / "ckpt")) == ["step_1", "step_2"]
 
 
 def test_cli_defaults_to_cuda(tmp_path):

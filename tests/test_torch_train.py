@@ -79,7 +79,10 @@ CASES = {
     # a later epoch: ExponentialLR's rates through lr_at (srgan_tpu/
     # training/gan.py:590-598)
     "epoch2": (FULL, True, 1, K, 2),
+    # the presets' k = 5 (srgan_tpu/configs.py:79-115)
+    "k5": (FULL, True, 1, 5, 0),
 }
+MAX_K = max(case[3] for case in CASES.values())
 
 
 def _configs(weights, k=K):
@@ -146,7 +149,7 @@ def jax_init():
                  target_label=((src + rng.integers(1, 4, B)) % 4)
                  .astype(np.int64))
     draws = [rng.standard_normal((B, NDIM)).astype(np.float32)
-             for _ in range(K)]
+             for _ in range(MAX_K)]
     return types.SimpleNamespace(state=state, batch=batch, draws=draws)
 
 
@@ -205,12 +208,21 @@ def test_lr_schedule_and_step_semantics_guards():
     t = GANTrainer(cfg, device="cpu")
     assert t.lr_at(0) == (LR, LR, LR)
     assert t.lr_at(2) == pytest.approx(tuple([LR * 0.95 ** 2] * 3))
+    # the JAX step's options are all ported (tests/test_torch_singlegan.py)
     for change in (dict(unrolled_restore=True),
                    dict(encoded_feature="latent")):
-        with pytest.raises(NotImplementedError):
-            GANTrainer(dataclasses.replace(
-                cfg, train=dataclasses.replace(cfg.train, **change)),
-                device="cpu")
+        GANTrainer(dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, **change)),
+            device="cpu")
+    with pytest.raises(ValueError, match="encoded_feature"):
+        GANTrainer(dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, encoded_feature="z")), device="cpu")
+    # batch norm is not ported (ROADMAP A10)
+    with pytest.raises(NotImplementedError, match="A10"):
+        GANTrainer(dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, norm_type="batch")), device="cpu")
+    with pytest.raises(ValueError, match="trainer"):
+        GANTrainer(dataclasses.replace(cfg, trainer="stargan"), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         if torch.cuda.is_available():
             raise RuntimeError("CUDA present: nothing to check")
