@@ -101,18 +101,37 @@ from the root of a checkout; no install step, no argument.  Phases:
      same weights on the CPU; ``sample_sweep`` on phase 10's checkpoint
      (GIFs where PIL imports, the grid PNG where matplotlib does); and
      ``train_gan`` with grids on: where matplotlib is missing it must
-     refuse before any step, else write the JAX loop's PNG names.
+     refuse before any step, else write the JAX loop's PNG names;
+ 16. batch-norm mode: 05_srgan_full with norm_type="batch" at full width
+     (batch 128, k = 5, fp32, TF32 off), 1 warm and 2 timed steps with
+     CUDA events and the peak memory, every metric finite, every running
+     statistic of G and E moved, no norm kernel and 1 + 1 histogram
+     launches a step as derived, one more step under torch.profiler, and
+     the eval-mode transform of one image against its row of the
+     batch-of-128 call (1e-4);
+ 17. data parallel on the one card: two ranks spawned under gloo, both on
+     cuda:0, run the 05_srgan_full step at full width on a global batch of
+     128 (64 a rank), fp32, from the weights and injected draws of one
+     single-process step run first: the metrics within 2e-3 relative of
+     it, the G, D and E parameters by the Adam-sign-tolerant criterion of
+     tests/test_torch_train.py, both ranks bit-equal, each rank's norm and
+     histogram launches as phase 8 derives them, then one more step each;
+     step ms and peak memory per rank.  The only phase where the
+     collectives meet CUDA tensors; it checks correctness across ranks,
+     not scaling.  A rank that fails fails the phase.
 
 Each entry point of phases 11-13 runs with TF32 turned on before it and
 must turn it off itself (``resolve_device``), as it does for its users.
 
 Without CUDA it raises before printing a result.  It starts no server; its
 subprocesses are nvidia-smi, nvcc and g++ (the host probes and the native
-decoder's build), each with a timeout, and its threads are the loader's
-workers, joined at the end of each epoch.  Before the last line it prints
+decoder's build), each with a timeout, its threads are the loader's
+workers, joined at the end of each epoch, and phase 17's two ranks, joined
+(or killed at a timeout) before it goes on.  Before the last line it prints
 the `kernels`, `training`, `serving`, `loop`, `classifier`, `vgg`,
-`evaluation`, `variants` and `visualisation` JSON lines; the last line is
-{"ok": true, "device": {...}}.
+`evaluation`, `variants`, `visualisation`, `batch_norm` and
+`data_parallel` JSON lines; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -2470,6 +2489,286 @@ def viz_phase(cfg, loop_out, probes, work, name, power_limit):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 16: batch-norm mode
+# ---------------------------------------------------------------------------
+
+BN_TIMED_STEPS = 2
+# eval-mode transform of one image against its row of the whole batch's
+# call: the running statistics make each row its own (fp32, cuDNN's
+# algorithm may differ with the batch size)
+BN_ROW_TOL = 1e-4
+
+
+def running_stats(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()
+            if "running" in k}
+
+
+def batch_norm_phase(g_per, e_per, name, power_limit):
+    """Phase 16.  Returns the `batch_norm` record and the launches of one
+    step."""
+    cfg = PRESETS[PRESET]()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, norm_type="batch"))
+    B, k = cfg.train.batch_size, cfg.train.unrolled_k
+    say(f"== phase 16: batch-norm mode of {PRESET} at full width: batch "
+        f"{B}, k = {k}, fp32 (TF32 off), frozen encoder trunk, 1 warm and "
+        f"{BN_TIMED_STEPS} timed steps")
+    # CBBNorm and BatchNorm are plain torch ops: no norm kernel a forward
+    want = expected_counts(cfg, 0, 0)
+    batches = make_batches(cfg, 1 + BN_TIMED_STEPS, seed=16)
+    trainer, state = fresh(cfg)
+    before = {"G": running_stats(state.G), "E": running_stats(state.E)}
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i, batch in enumerate(batches):
+        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch)
+        say(f"batch-norm step {i} ({'warm' if i == 0 else 'timed'}): device "
+            f"{dev_ms:.1f} ms, host {host_ms:.1f} ms, launches {counts}, "
+            + json.dumps(metrics))
+        check(counts == want, f"batch mode: launches {counts}, derived "
+              f"{want}")
+        steps.append(dict(metrics=metrics, device_ms=dev_ms,
+                          host_ms=host_ms))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_step(lambda: trainer.step(state, batches[-1]))
+    say_profile("one batch-mode step", prof)
+    moved = {}
+    for net in ("G", "E"):
+        after = running_stats(getattr(state, net))
+        check(set(after) == set(before[net]) and after,
+              f"{net} has no running statistics")
+        moved[net] = sum(not torch.equal(after[key], before[net][key])
+                         for key in after)
+        check(moved[net] == len(after), f"{net}: {len(after) - moved[net]} "
+              "running statistics did not move")
+    images = batches[0]["image"]
+    tgt = batches[0]["target_label"]
+    latent = torch.randn((B, cfg.model.ndim), device=DEV,
+                         generator=torch.Generator(DEV).manual_seed(16))
+    full, _ = gan.transform(state.G, images, tgt, latent)
+    one, _ = gan.transform(state.G, images[:1], tgt[:1], latent[:1])
+    row_err = float((one[0] - full[0]).abs().max())
+    say(f"eval-mode transform of image 0 alone against its row of the "
+        f"batch of {B}: max abs {row_err:.3e} (tol {BN_ROW_TOL:g})")
+    check(bool(torch.isfinite(full).all()), "batch-mode transform is not "
+          "finite")
+    check(row_err <= BN_ROW_TOL, "eval-mode transform depends on the batch")
+    timed = [s["device_ms"] for s in steps[1:]]
+    del trainer, state
+    torch.cuda.empty_cache()
+    return dict(preset=PRESET, norm_type="batch", batch=B, unrolled_k=k,
+                tf32=False, freeze_pretrained=True, card=name,
+                power_limit=power_limit,
+                warm_step_device_ms=steps[0]["device_ms"],
+                step_device_ms=timed,
+                step_host_ms=[s["host_ms"] for s in steps[1:]],
+                step_device_ms_mean=sum(timed) / len(timed),
+                img_s=1e3 * B * len(timed) / sum(timed),
+                peak_mem_gib=peak, launches_per_step=want,
+                running_stats_moved=moved, transform_row_max_abs=row_err,
+                metrics_last_step=steps[-1]["metrics"], profile=prof), want
+
+
+# ---------------------------------------------------------------------------
+# phase 17: data parallel, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_TIMED_STEPS = 1
+# the metrics of the two-rank step against the single-process step:
+# tests/test_sharding.py:108-114's tolerance
+DP_TOL = 2e-3
+DP_TIMEOUT_S = 600
+DP_LR = 1e-4
+
+
+class InjectedTrainer(gan.GANTrainer):
+    """Hands out the given draws, in order, at the step's seam."""
+
+    def _draw_latent(self, shape):
+        arr = self.draws[self.draw_i]
+        self.draw_i += 1
+        check(tuple(arr.shape) == tuple(shape),
+              f"draw {tuple(arr.shape)} for {tuple(shape)}")
+        return arr.to(self.device)
+
+
+def param_parity(ours, theirs, n_steps, what, bound_only=False):
+    """``tests/test_torch_train.py``'s Adam-sign-tolerant criterion: the
+    largest difference within n_steps opposite Adam steps, the mean a small
+    fraction of one, under 1 % of the elements off by more than 1e-6.
+    Returns the largest and mean difference."""
+    d = torch.cat([(ours[k].float() - theirs[k].float()).abs().reshape(-1)
+                   for k in sorted(theirs)]).double()
+    worst, mean = float(d.max()), float(d.mean())
+    frac = float((d > 1e-6).double().mean())
+    check(worst <= 2.2 * n_steps * DP_LR, f"{what}: max {worst:.3e}")
+    if not bound_only:
+        check(mean < 0.02 * DP_LR, f"{what}: mean {mean:.3e}")
+        check(frac < 0.01, f"{what}: {frac:.3%} of the elements off")
+    return dict(max_abs=worst, mean_abs=mean, frac_above_1e6=frac)
+
+
+def _dp_rank(rank, work, nprocs):
+    """One rank of phase 17: joins the gloo group on the parent's device
+    (cuda:0 for every rank), steps once on
+    its rows of the global batch from the saved weights and draws (its
+    launches counted), then DP_TIMED_STEPS more; saves what it measured."""
+    from srgan_tpu_torch.parallel import make_mesh, shard_batch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(nprocs),
+                      LOCAL_RANK=str(rank))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    inp = torch.load(os.path.join(work, "dp_inputs.pt"), weights_only=False)
+    mesh = make_mesh(inp["device"], backend="gloo",
+                     init_method="file://" + os.path.join(work, "rdzv"))
+    try:
+        cfg = config_from_dict(inp["config"])
+        trainer = InjectedTrainer(cfg, mesh=mesh)
+        state = trainer.init_state(g_state=inp["G"], d_state=inp["D"],
+                                   e_state=inp["E"],
+                                   hist_target=inp["hist_target"],
+                                   freeze_pretrained=True)
+        batch = shard_batch(inp["batch"], mesh)
+        batch["image"] = batch["image"].to(mesh.device)
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i in range(1 + DP_TIMED_STEPS):
+            trainer.draws, trainer.draw_i = inp["draws"], 0
+            metrics, dev_ms, host_ms, counts = timed_step(trainer, state,
+                                                          batch)
+            steps.append(dict(device_ms=dev_ms, host_ms=host_ms,
+                              launches=counts, metrics=metrics))
+            if i == 0:
+                first = {net: {k: v.detach().cpu().clone() for k, v in
+                               getattr(state, net).state_dict().items()}
+                         for net in ("G", "D", "E")}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # every rank's parameters against rank 0's, after the first step
+        flat = torch.cat([v.reshape(-1).float() for net in ("G", "D", "E")
+                          for v in first[net].values()]).to(mesh.device)
+        ref = flat.clone()
+        torch.distributed.broadcast(ref, src=0)
+        rank_diff = float((flat - ref).abs().max())
+        out = dict(steps=steps, peak_mem_gib=peak, rank_diff=rank_diff,
+                   backend=mesh.backend, device=str(mesh.device))
+        if rank == 0:
+            out["state"] = first
+        torch.save(out, os.path.join(work, f"dp_out{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_ranks(fn, work, nprocs, timeout):
+    """``fn(rank, work, nprocs)`` on ``nprocs`` spawned processes; a rank
+    that raises makes this raise, and one still running after ``timeout``
+    seconds is killed and this raises."""
+    ctx = torch.multiprocessing.start_processes(
+        fn, args=(work, nprocs), nprocs=nprocs, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            check(time.monotonic() <= deadline,
+                  f"a rank ran past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def data_parallel_phase(g_per, e_per, work, name, power_limit):
+    """Phase 17, in the directory ``work``.  Returns the `data_parallel`
+    record and one rank's launches of its step."""
+    cfg = PRESETS[PRESET]()
+    B, k, ndim = cfg.train.batch_size, cfg.train.unrolled_k, cfg.model.ndim
+    say(f"== phase 17: data parallel, {DP_RANKS} ranks under gloo on the "
+        f"one card (cuda:0), the {PRESET} step at full width on a global "
+        f"batch of {B} ({B // DP_RANKS} a rank), fp32, from the same "
+        "weights and draws as one single-process step; the only place "
+        "where the collectives meet CUDA tensors (gloo stages them through "
+        "the host); it checks correctness across ranks, not scaling")
+    want = expected_counts(cfg, g_per, e_per)
+    rng = np.random.default_rng(17)
+    draws = [torch.from_numpy(rng.standard_normal((B, ndim))
+                              .astype(np.float32)) for _ in range(k)]
+    batch = make_batches(cfg, 1, seed=17)[0]
+    with deterministic_cudnn():
+        trainer = InjectedTrainer(cfg, DEV)
+        state = trainer.init_state(torch.Generator().manual_seed(0),
+                                   freeze_pretrained=True)
+        start = {net: {k2: v.detach().cpu().clone() for k2, v in
+                       getattr(state, net).state_dict().items()}
+                 for net in ("G", "D", "E")}
+        hist_target = state.hist_target.cpu()
+        trainer.draws, trainer.draw_i = draws, 0
+        single, s_ms, _, s_counts = timed_step(trainer, state, batch)
+        check(s_counts == want, f"single-process step: launches "
+              f"{s_counts}, derived {want}")
+        post = {net: {k2: v.detach().cpu().clone() for k2, v in
+                      getattr(state, net).state_dict().items()}
+                for net in ("G", "D", "E")}
+    del trainer, state
+    torch.cuda.empty_cache()
+    host_batch = {key: v.cpu() for key, v in batch.items()}
+    torch.save(dict(device="cuda:0" if DEV == "cuda" else DEV,
+                    config=dataclasses.asdict(cfg), draws=draws,
+                    hist_target=hist_target, batch=host_batch, **start),
+               os.path.join(work, "dp_inputs.pt"))
+    t0 = time.perf_counter()
+    run_ranks(_dp_rank, work, DP_RANKS, DP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    outs = [torch.load(os.path.join(work, f"dp_out{r}.pt"),
+                       weights_only=False) for r in range(DP_RANKS)]
+    for r, out in enumerate(outs):
+        for i, st in enumerate(out["steps"]):
+            say(f"rank {r} step {i} ({'compared' if i == 0 else 'timed'}): "
+                f"device {st['device_ms']:.1f} ms, host "
+                f"{st['host_ms']:.1f} ms, launches {st['launches']}, peak "
+                f"{out['peak_mem_gib']:.2f} GiB")
+            check(st["launches"] == want, f"rank {r}: launches "
+                  f"{st['launches']}, derived {want}")
+        check(out["rank_diff"] == 0.0, f"rank {r}'s parameters differ from "
+              f"rank 0's by {out['rank_diff']:.3e}")
+        check(out["steps"][0]["metrics"] == outs[0]["steps"][0]["metrics"],
+              f"rank {r}'s metrics differ from rank 0's")
+    dp = outs[0]["steps"][0]["metrics"]
+    check(set(dp) == set(single), (sorted(dp), sorted(single)))
+    worst = max(abs(dp[key] - v) / max(abs(v), 1e-12)
+                for key, v in single.items())
+    say(f"single-process step: device {s_ms:.1f} ms, "
+        + json.dumps(single))
+    say(f"two-rank step: " + json.dumps(dp) + f"; worst relative "
+        f"difference {worst:.2e} (tol {DP_TOL:g})")
+    check(worst <= DP_TOL, "the two-rank step disagrees with the "
+          "single-process step")
+    params = {net: param_parity(outs[0]["state"][net], post[net], n, net,
+                                bound_only=net == "G")
+              for net, n in (("G", 2), ("D", k), ("E", 1))}
+    say(f"parameters after the step against the single-process step: "
+        + json.dumps(params))
+    return dict(
+        preset=PRESET, ranks=DP_RANKS, backend=outs[0]["backend"],
+        device=outs[0]["device"], global_batch=B,
+        batch_per_rank=B // DP_RANKS, unrolled_k=k, tf32=False,
+        freeze_pretrained=True, card=name, power_limit=power_limit,
+        single_step_device_ms=s_ms,
+        rank_step_device_ms=[[st["device_ms"] for st in o["steps"]]
+                             for o in outs],
+        rank_step_host_ms=[[st["host_ms"] for st in o["steps"]]
+                           for o in outs],
+        rank_peak_mem_gib=[o["peak_mem_gib"] for o in outs],
+        launches_per_rank_step=want, metrics_single=single,
+        metrics_two_rank=dp, worst_rel_diff=worst, params=params,
+        ranks_wall_s=ranks_s,
+        note="two ranks share one card: correctness across ranks, not "
+             "scaling"), want
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -2535,11 +2834,19 @@ def main():
             visualisation = viz_phase(cfg, loop_out, loop_record["probes"],
                                       work, name, power_limit)
             t5 = time.perf_counter()
+            batch_norm, bn_launches = batch_norm_phase(g_per, e_per, name,
+                                                       power_limit)
+            t6 = time.perf_counter()
+            data_parallel, dp_launches = data_parallel_phase(
+                g_per, e_per, work, name, power_limit)
+            t7 = time.perf_counter()
             classifier["phase_s"], vgg["phase_s"] = t1 - t0, t2 - t1
             evaluation["phase_s"] = t3 - t2
             variants["phase_s"], visualisation["phase_s"] = t4 - t3, t5 - t4
-            say(f"phases 11, 12, 13, 14, 15: {t1 - t0:.1f}, {t2 - t1:.1f}, "
-                f"{t3 - t2:.1f}, {t4 - t3:.1f}, {t5 - t4:.1f} s")
+            batch_norm["phase_s"], data_parallel["phase_s"] = t6 - t5, t7 - t6
+            say(f"phases 11-17: {t1 - t0:.1f}, {t2 - t1:.1f}, "
+                f"{t3 - t2:.1f}, {t4 - t3:.1f}, {t5 - t4:.1f}, "
+                f"{t6 - t5:.1f}, {t7 - t6:.1f} s")
         finally:
             tempfile.tempdir = saved_tempdir
 
@@ -2570,6 +2877,13 @@ def main():
         if kn == "cbinorm_fwd":
             entry["launches_serving"] = serving["launches"]
         entry["launches_loop"] = loop_launches[kn]
+        entry["launches_batch_mode"] = bn_launches[kn]
+        entry["launches_data_parallel_rank"] = dp_launches[kn]
+        check(kn == "diversification_fwd" or dp_launches[kn] > 0,
+              f"{kn} was not launched by a data-parallel rank")
+        check(kn not in ("soft_histogram_fwd", "soft_histogram_bwd")
+              or bn_launches[kn] > 0,
+              f"{kn} was not launched by the batch-mode step")
         entry["launches_variants"] = {key: c[kn] for key, c in
                                       variant_launches.items()}
         check(kn == "diversification_fwd"
@@ -2613,12 +2927,14 @@ def main():
     say(json.dumps({"training": training}))
     say(json.dumps({"serving": serving}))
     say(json.dumps({"loop": loop_record}))
-    say(f"phases 1-15: {time.perf_counter() - t_script:.1f} s")
+    say(f"phases 1-17: {time.perf_counter() - t_script:.1f} s")
     say(json.dumps({"classifier": classifier}))
     say(json.dumps({"vgg": vgg}))
     say(json.dumps({"evaluation": evaluation}))
     say(json.dumps({"variants": variants}))
     say(json.dumps({"visualisation": visualisation}))
+    say(json.dumps({"batch_norm": batch_norm}))
+    say(json.dumps({"data_parallel": data_parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

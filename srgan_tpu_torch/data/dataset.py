@@ -140,5 +140,10 @@ class FaceDataset:
         arr = np.asarray(img, np.float32) / 255.0       # HWC [0,1]
         return minmax_transform(arr, mean0=True)        # per-image [-1,1]
 
+    def draw_flips(self, n: int) -> np.ndarray:
+        """The next ``n`` flip coins of the dataset's own generator, as ``n``
+        calls of ``transform`` without ``flip`` would draw them."""
+        return self._rng.random(n) < 0.5
+
     def __getitem__(self, index: int):
         return self.transform(self.load_raw(index)), self.labels[index]

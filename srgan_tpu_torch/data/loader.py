@@ -15,6 +15,14 @@ The reference drives training with ``torch.utils.data.DataLoader(batch_size=
 Its batches are the JAX package's bits for the same seed.
 ``prefetch_to_device`` copies them to the device on a side stream ahead of
 the step that reads them.
+
+Data parallel (``mesh``, a ``parallel.Mesh``; counterpart of
+``srgan_tpu/data/loader.py:92-121`` with a mesh): ``DataLoader(mesh=...)``
+yields this rank's rows of every global batch (row-major, as
+``shard_batch``) and decodes only those, while it draws the whole batch's
+flips and targets so that each rank's rows are the single-process
+loader's; ``prefetch_to_device(mesh=...)`` cuts global host batches to
+this rank's rows before the copy.  Give the mesh to one of the two.
 """
 
 from __future__ import annotations
@@ -47,14 +55,29 @@ class DataLoader:
     ``num_workers`` threads (a ``FaceDataset`` decodes with PIL and draws
     each flip from its own generator, inside the worker; with flips on and
     more than one worker the order of those draws follows the threads, as
-    in the JAX package)."""
+    in the JAX package).
+
+    With a ``mesh``, the batches hold this rank's rows of each global batch
+    of ``batch_size``, which the ranks must divide.  The flips of the whole
+    global batch are drawn in order on the calling thread (``native``: the
+    loader's generator, as one process does; ``pil``: the dataset's
+    ``draw_flips``, as one process with one worker does), then the targets
+    from all its labels, so every rank keeps the same generators."""
 
     def __init__(self, dataset, batch_size: int = 128, shuffle: bool = True,
                  drop_last: bool = True, classes: Sequence[int] = (0, 1, 2, 3),
                  sample_targets: bool = True, num_workers: int = 8,
-                 seed: int = 0, decode: str = "native"):
+                 seed: int = 0, decode: str = "native", mesh=None):
         if decode not in DECODES:
             raise ValueError(f"decode {decode!r}: one of {DECODES}")
+        if mesh is not None:
+            if batch_size % mesh.size:
+                raise ValueError(f"batch {batch_size} does not split over "
+                                 f"{mesh.size} ranks")
+            if decode == "pil" and not hasattr(dataset, "draw_flips"):
+                raise ValueError(
+                    f"a sharded PIL decode needs a FaceDataset; "
+                    f"{type(dataset).__name__} has no draw_flips")
         if decode == "native":
             missing = [a for a in _FILE_BACKED if not hasattr(dataset, a)]
             if missing:
@@ -75,6 +98,7 @@ class DataLoader:
         self.sample_targets = sample_targets
         self.num_workers = num_workers
         self.decode = decode
+        self.mesh = mesh
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -82,13 +106,24 @@ class DataLoader:
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
 
-    def _images_native(self, idx) -> np.ndarray:
+    def _images_native(self, idx, rows=slice(None)) -> np.ndarray:
         ds = self.dataset
-        paths = [ds.images[int(i)] for i in idx]
         flips = (self._rng.random(len(idx)) < 0.5).astype(np.uint8) \
             if ds.flip else np.zeros(len(idx), np.uint8)
-        return native.load_batch(paths, ds.crop, ds.image_size, flips,
+        paths = [ds.images[int(i)] for i in idx[rows]]
+        return native.load_batch(paths, ds.crop, ds.image_size, flips[rows],
                                  self.num_workers)
+
+    def _rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n``."""
+        if self.mesh is None:
+            return slice(None)
+        if n % self.mesh.size:
+            raise ValueError(f"a global batch of {n} does not split over "
+                             f"{self.mesh.size} ranks (drop_last=False "
+                             "left a partial batch)")
+        b = n // self.mesh.size
+        return slice(self.mesh.rank * b, (self.mesh.rank + 1) * b)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         n = len(self.dataset)
@@ -101,19 +136,28 @@ class DataLoader:
             return self.dataset[int(i)]
 
         def make_batch(pool, idx):
+            rows = self._rows(len(idx))
             if self.decode == "native":
-                images = self._images_native(idx)
+                images = self._images_native(idx, rows)
                 labels = np.asarray([self.dataset.labels[int(i)]
                                      for i in idx], np.int32)
+            elif self.mesh is not None:
+                ds = self.dataset
+                flips = ds.draw_flips(len(idx))[rows]
+                images = np.stack(list(pool.map(
+                    lambda i, f: ds.transform(ds.load_raw(int(i)), flip=f),
+                    idx[rows], flips)))
+                labels = np.asarray([ds.labels[int(i)] for i in idx],
+                                    np.int32)
             else:
                 items = list(pool.map(fetch, idx))
                 images = np.stack([im for im, _ in items])
                 labels = np.asarray([lb for _, lb in items], np.int32)
-            batch = {"image": images, "source_label": labels}
+            batch = {"image": images, "source_label": labels[rows]}
             if self.sample_targets:
                 tgt = get_target(labels, self.classes, whole=False,
                                  shuffle=True, rng=self._rng)
-                batch["target_label"] = tgt[:, 0].astype(np.int32)
+                batch["target_label"] = tgt[rows, 0].astype(np.int32)
             return batch
 
         with ThreadPoolExecutor(self.num_workers) as pool:
@@ -131,9 +175,11 @@ def _as_tensor(key: str, value) -> torch.Tensor:
 
 
 def prefetch_to_device(iterator: Iterable[Dict], device="cuda",
-                       size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                       size: int = 2, mesh=None
+                       ) -> Iterator[Dict[str, torch.Tensor]]:
     """The batches of ``iterator`` as dicts of tensors on ``device``
-    (``image`` float32 NHWC, labels int64), copied ``size`` batches ahead.
+    (``image`` float32 NHWC, labels int64), copied ``size`` batches ahead;
+    with a ``mesh``, only this rank's rows of each (global) batch.
 
     On a CUDA device each host batch is pinned and copied ``non_blocking``
     on a side stream, so the copy of batch N+1 overlaps the step on batch
@@ -144,6 +190,10 @@ def prefetch_to_device(iterator: Iterable[Dict], device="cuda",
     completed.  On the CPU the batches are only converted."""
     if size < 1:
         raise ValueError(f"size {size}: at least 1")
+    if mesh is not None:
+        from srgan_tpu_torch.parallel.mesh import shard_batch
+
+        iterator = (shard_batch(b, mesh) for b in iterator)
     device = torch.device(device)
     if device.type != "cuda":
         for batch in iterator:

@@ -9,6 +9,11 @@ pretraining model.  Module and key names follow the reference's
 ``EncoderOriginal``, ``Encoder`` and ``Encoder_classifier``, so their state
 dicts load with ``strict=True`` and a classifier's trunk and ``fcclass``
 load into an ``Encoder``.
+
+Every model takes ``norm_type``: "instance" (the norm kernels) or "batch"
+(``srgan_tpu/nn/encoder.py:44-48, 76-82``): ``CBBNorm`` in ``BasicBlock``,
+``BatchNorm`` (``norm1`` / ``norm2``) in ``BasicBlockClassification``,
+batch statistics in ``train()`` mode and running ones in ``eval()``.
 """
 
 from __future__ import annotations
@@ -21,11 +26,12 @@ from torch import nn
 
 from srgan_tpu_torch.nn.layers import (
     AvgPool2d,
-    CBINorm,
+    BatchNorm,
     Conv2d,
     Linear,
     adaptive_avg_pool,
     instance_norm,
+    make_cnorm,
 )
 
 
@@ -35,12 +41,13 @@ class BasicBlock(nn.Module):
     one-hot, LeakyReLU 0.2 and a conv, twice; the shortcut pools, then a
     1x1 conv."""
 
-    def __init__(self, nch_in: int, nch_out: int, num_con: int):
+    def __init__(self, nch_in: int, nch_out: int, num_con: int,
+                 norm_type: str = "instance"):
         super().__init__()
-        self.cnorm1 = CBINorm(nch_in, num_con)
+        self.cnorm1 = make_cnorm(norm_type, nch_in, num_con)
         self.conv1 = Conv2d(nch_in, nch_in, 3, 1, 1, bias=False,
                             padding_mode="reflect")
-        self.cnorm2 = CBINorm(nch_in, num_con)
+        self.cnorm2 = make_cnorm(norm_type, nch_in, num_con)
         self.cmp = nn.Sequential(
             Conv2d(nch_in, nch_out, 3, 1, 1, bias=False,
                    padding_mode="reflect"),
@@ -56,10 +63,19 @@ class BasicBlock(nn.Module):
 
 class BasicBlockClassification(nn.Module):
     """Unconditional pre-activation residual block with 2x2 average-pool
-    downsampling (``srgan_tpu/nn/encoder.py:66-97``)."""
+    downsampling (``srgan_tpu/nn/encoder.py:66-97``); instance norm, or
+    ``BatchNorm`` ``norm1`` / ``norm2`` in batch mode."""
 
-    def __init__(self, nch_in: int, nch_out: int):
+    def __init__(self, nch_in: int, nch_out: int,
+                 norm_type: str = "instance"):
         super().__init__()
+        if norm_type == "batch":
+            self.norm1, self.norm2 = BatchNorm(nch_in), BatchNorm(nch_in)
+        elif norm_type == "instance":
+            self.norm1 = self.norm2 = instance_norm
+        else:
+            raise NotImplementedError(
+                f"normalization layer [{norm_type}] is not found")
         self.conv1 = Conv2d(nch_in, nch_in, 3, 1, 1, bias=False,
                             padding_mode="reflect")
         self.cmp = nn.Sequential(
@@ -70,8 +86,8 @@ class BasicBlockClassification(nn.Module):
                                       Conv2d(nch_in, nch_out, 1, 1, 0))
 
     def forward(self, x):
-        h = F.leaky_relu(instance_norm(x), 0.2)
-        h = F.leaky_relu(instance_norm(self.conv1(h)), 0.2)
+        h = F.leaky_relu(self.norm1(x), 0.2)
+        h = F.leaky_relu(self.norm2(self.conv1(h)), 0.2)
         return self.cmp(h) + self.shortcut(x)
 
 
@@ -82,13 +98,13 @@ class _Trunk(nn.Module):
     given."""
 
     def __init__(self, nch_in: int, nch: int, num_cls: int,
-                 num_con: Optional[int] = None):
+                 num_con: Optional[int] = None, norm_type: str = "instance"):
         super().__init__()
         self.first_layer = Conv2d(nch_in, nch, 7, 2, 1)
         widths = [(nch * 2 ** i, nch * 2 ** (i + 1)) for i in range(num_cls)]
         self.layers = nn.ModuleList(
-            BasicBlockClassification(a, b) if num_con is None
-            else BasicBlock(a, b, num_con) for a, b in widths)
+            BasicBlockClassification(a, b, norm_type) if num_con is None
+            else BasicBlock(a, b, num_con, norm_type) for a, b in widths)
 
     def features(self, x, *cond):
         h = self.first_layer(x)
@@ -104,8 +120,9 @@ class EncoderOriginal(_Trunk):
     full depth) are conditioned on the one-hot and run the norm kernels."""
 
     def __init__(self, nch_in: int = 3, nch_out: int = 8, nch: int = 64,
-                 num_cls: int = 4, num_con: int = 4):
-        super().__init__(nch_in, nch, num_cls, num_con)
+                 num_cls: int = 4, num_con: int = 4,
+                 norm_type: str = "instance"):
+        super().__init__(nch_in, nch, num_cls, num_con, norm_type)
         self.num_con = num_con
         feat = nch * 2 ** num_cls
         self.fcmean = Linear(feat, nch_out)
@@ -126,8 +143,9 @@ class Encoder(_Trunk):
     (``srgan_tpu/nn/encoder.py:137-172``)."""
 
     def __init__(self, nch_in: int = 3, nch_out: int = 8, nch: int = 64,
-                 num_cls: int = 4, num_con: int = 4):
-        super().__init__(nch_in, nch, num_cls)
+                 num_cls: int = 4, num_con: int = 4,
+                 norm_type: str = "instance"):
+        super().__init__(nch_in, nch, num_cls, norm_type=norm_type)
         feat = nch * 2 ** num_cls
         self.fcmean = Linear(feat, nch_out)
         self.fcvar = Linear(feat, nch_out)
@@ -147,8 +165,8 @@ class EncoderClassifier(_Trunk):
     block at full depth) run the norm kernels, forward and backward."""
 
     def __init__(self, nch_in: int = 3, nch: int = 64, num_cls: int = 4,
-                 num_con: int = 4):
-        super().__init__(nch_in, nch, num_cls)
+                 num_con: int = 4, norm_type: str = "instance"):
+        super().__init__(nch_in, nch, num_cls, norm_type=norm_type)
         self.fcclass = Linear(nch * 2 ** num_cls, num_con)
 
     def forward(self, x):

@@ -13,9 +13,14 @@ Examples:
       --synthetic --device cpu --decode pil --batch-size 16 --epochs 2 \\
       --unrolled-k 1 --out runs/singlegan_smoke
 
+  # data parallel over N GPUs of one host (NCCL), one process a GPU
+  torchrun --nproc_per_node N -m srgan_tpu_torch.train \
+      --preset 05_srgan_full ... --mesh [--grad-sync manual]
+
 The grids (progress_e*_i*.png in --out) need matplotlib; --no-sample-grids
-turns them off.  Data parallel (the JAX script's --mesh and --grad-sync) is
-not ported yet (ROADMAP A11).
+turns them off.  --mesh joins the process group torchrun sets up (RANK,
+WORLD_SIZE, LOCAL_RANK) and raises without one; --batch-size is the global
+batch, split over the ranks; rank 0 alone writes --out.
 """
 
 from __future__ import annotations
@@ -42,6 +47,14 @@ def main(argv=None):
     ap.add_argument("--classifier-ckpt",
                     help=".pth of the nb04 classifier (Encoder_classifier "
                          "layout)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="data parallel over the torchrun process group, "
+                         "one device a rank")
+    ap.add_argument("--grad-sync", choices=("auto", "manual"),
+                    default="auto",
+                    help="with --mesh: both run one gradient all-reduce per "
+                         "update; auto also sums batch-norm moments over "
+                         "the ranks, manual refuses batch norm")
     ap.add_argument("--epochs", type=int)
     ap.add_argument("--batch-size", type=int)
     ap.add_argument("--unrolled-k", type=int)
@@ -103,16 +116,28 @@ def main(argv=None):
     if not (args.synthetic or args.data_root):
         ap.error("pass --data-root/--attr-file (or --label-root), "
                  "or --synthetic")
-    train_gan(cfg, args.out, data_root=args.data_root,
-              attr_file=args.attr_file, label_root=args.label_root,
-              epochs=args.epochs, classifier_ckpt=args.classifier_ckpt,
-              sample_grids=not args.no_sample_grids,
-              grid_every_epochs=args.grid_every_epochs,
-              synthetic_per_class=args.synthetic_per_class,
-              resume=args.resume, profile_dir=args.profile_dir,
-              debug_nans=args.debug_nans, device=args.device,
-              decode=args.decode)
-    print(f"done -> {args.out}")
+    mesh = None
+    if args.mesh:
+        from srgan_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(args.device)
+    try:
+        train_gan(cfg, args.out, data_root=args.data_root,
+                  attr_file=args.attr_file, label_root=args.label_root,
+                  epochs=args.epochs, classifier_ckpt=args.classifier_ckpt,
+                  sample_grids=not args.no_sample_grids,
+                  grid_every_epochs=args.grid_every_epochs,
+                  synthetic_per_class=args.synthetic_per_class,
+                  resume=args.resume, profile_dir=args.profile_dir,
+                  debug_nans=args.debug_nans, device=args.device,
+                  decode=args.decode, mesh=mesh, grad_sync=args.grad_sync)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    if mesh is None or mesh.rank == 0:
+        print(f"done -> {args.out}")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """The GAN trainer of the port: model construction, the train step and the
-inference surface (counterpart of ``srgan_tpu/training/gan.py``) on one
-device, instance norm, for its three variants:
+inference surface (counterpart of ``srgan_tpu/training/gan.py``), instance
+or batch norm, on one device or data parallel over ``torch.distributed``,
+for its three variants:
 
   ``singlegan``       nb01: one two-scale D per domain, the conditional
                       encoder (``EncoderOriginal``), no class loss;
@@ -10,14 +11,21 @@ device, instance norm, for its three variants:
 
 ``transform`` and ``encode`` and the train step's batch keep the JAX
 package's NHWC layout at their boundary; the models inside run NCHW.
+
+Batch-norm mode (``norm_type="batch"``): G and E run in ``train()`` mode
+inside the step, so their norms take the batch's statistics and move the
+running ones in the JAX step's call order; ``transform`` and ``encode`` run
+them in ``eval()`` mode, on the running statistics.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -28,7 +36,7 @@ from srgan_tpu_torch.nn.discriminator import (
 )
 from srgan_tpu_torch.nn.encoder import Encoder, EncoderOriginal
 from srgan_tpu_torch.nn.generator import SingleGenerator
-from srgan_tpu_torch.nn.layers import init_torch_default_
+from srgan_tpu_torch.nn.layers import BatchNorm, CBBNorm, init_torch_default_
 from srgan_tpu_torch.ops import losses as L
 from srgan_tpu_torch.training.state import (
     GANTrainState,
@@ -38,6 +46,8 @@ from srgan_tpu_torch.training.state import (
 )
 
 TRAINERS = ("singlegan", "singlegan_solo", "srgan")
+NORM_TYPES = ("instance", "batch")
+GRAD_SYNCS = ("auto", "manual")
 
 
 def resolve_device(device) -> torch.device:
@@ -60,10 +70,9 @@ def resolve_device(device) -> torch.device:
 def _check_config(cfg: ExperimentConfig):
     if cfg.trainer not in TRAINERS:
         raise ValueError(f"trainer {cfg.trainer!r}: one of {TRAINERS}")
-    if cfg.model.norm_type != "instance":
+    if cfg.model.norm_type not in NORM_TYPES:
         raise NotImplementedError(
-            f"norm_type {cfg.model.norm_type!r}: only instance norm is "
-            "ported (batch norm is ROADMAP A10)")
+            f"normalization layer [{cfg.model.norm_type}] is not found")
 
 
 def conditional_encoder(cfg: ExperimentConfig) -> bool:
@@ -112,10 +121,12 @@ def build_encoder(cfg: ExperimentConfig, device="cuda",
     with torch.device("meta"):
         if conditional_encoder(cfg):
             E = EncoderOriginal(nch_in=m.nch_in, nch_out=m.ndim, nch=m.e_nch,
-                                num_cls=m.e_num_cls, num_con=m.n_classes)
+                                num_cls=m.e_num_cls, num_con=m.n_classes,
+                                norm_type=m.norm_type)
         else:
             E = Encoder(nch_in=m.nch_in, nch_out=m.ndim, nch=m.e_nch,
-                        num_cls=m.e_num_cls, num_con=m.n_classes)
+                        num_cls=m.e_num_cls, num_con=m.n_classes,
+                        norm_type=m.norm_type)
     return _materialise(E, device, generator, cfg.train.seed, state_dict)
 
 
@@ -149,6 +160,21 @@ def build_discriminator(cfg: ExperimentConfig, device="cuda",
     return _materialise(D, device, generator, cfg.train.seed, state_dict)
 
 
+@contextlib.contextmanager
+def _mode(training: bool, *modules):
+    """``train()`` (batch-norm mode: the batch's statistics, moving the
+    running ones) or ``eval()`` (the running statistics) for the block,
+    then each module's mode as it was."""
+    was = [m.training for m in modules]
+    try:
+        for m in modules:
+            m.train(training)
+        yield
+    finally:
+        for m, w in zip(modules, was):
+            m.train(w)
+
+
 def onehot(labels, n_classes: int) -> torch.Tensor:
     """Rows of ``eye(n_classes)``, fp32; a label out of range raises."""
     return F.one_hot(torch.as_tensor(labels).long(), n_classes).float()
@@ -159,7 +185,8 @@ def transform(G: SingleGenerator, images: torch.Tensor, target_labels,
               latent: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """G_transformation: images (N, H, W, C) in [-1, 1] on G's device,
     target labels (N,), latent (N, ndim) or (ndim,), one style for the whole
-    batch.  Returns (fakes (N, H, W, C) fp32, latent (N, ndim))."""
+    batch.  Returns (fakes (N, H, W, C) fp32, latent (N, ndim)).  G runs in
+    eval mode (batch-norm mode: the running statistics)."""
     n = images.shape[0]
     latent = latent.float()
     if latent.dim() == 1:
@@ -167,7 +194,8 @@ def transform(G: SingleGenerator, images: torch.Tensor, target_labels,
     cond = torch.cat([onehot(target_labels, G.num_con - latent.shape[1])
                       .to(images.device), latent], dim=1)
     x = images.permute(0, 3, 1, 2).contiguous()
-    fake = G(x, cond)
+    with _mode(False, G):
+        fake = G(x, cond)
     return fake.permute(0, 2, 3, 1).contiguous(), latent
 
 
@@ -176,34 +204,57 @@ def encode(E: nn.Module, images: torch.Tensor, labels=None):
     """Encoder forward on (N, H, W, C) images: (mu, logvar, class_out);
     class_out is None for the conditional encoder, which needs the images'
     ``labels`` (N,) (``srgan_tpu/training/gan.py:624-628``); the
-    unconditional one ignores them."""
+    unconditional one ignores them.  E runs in eval mode."""
     x = images.permute(0, 3, 1, 2).contiguous()
-    if isinstance(E, EncoderOriginal):
-        if labels is None:
-            raise ValueError("the conditional encoder (SingleGAN trainers) "
-                             "needs the images' labels")
-        _, mu, logvar = E(x, onehot(labels, E.num_con).to(x.device))
-        return mu, logvar, None
-    return E(x)
+    with _mode(False, E):
+        if isinstance(E, EncoderOriginal):
+            if labels is None:
+                raise ValueError("the conditional encoder (SingleGAN "
+                                 "trainers) needs the images' labels")
+            _, mu, logvar = E(x, onehot(labels, E.num_con).to(x.device))
+            return mu, logvar, None
+        return E(x)
 
 
 def _g_pair(G, x1, c1, x2, c2):
     """Two generator applications as one 2B forward (every op is per
-    sample, so this is exact; ``srgan_tpu/training/gan.py:221-230``)."""
+    sample in instance mode, so this is exact; in batch mode it is one
+    running-statistics update from the 2B batch, the JAX package's
+    documented approximation, ``srgan_tpu/training/gan.py:221-230``)."""
     b = x1.shape[0]
     out = G(torch.cat([x1, x2], 0), torch.cat([c1, c2], 0))
     return out[:b], out[b:]
 
 
-def _apply_grads(loss, *opts: torch.optim.Optimizer):
+def _mean_over_ranks(tensors, mesh):
+    """Every rank's tensors replaced by their mean over the ranks: one
+    all-reduce of one flat fp32 buffer."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat)
+    flat /= mesh.size
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].view_as(t).to(t.dtype))
+        i += t.numel()
+    return out
+
+
+def _apply_grads(loss, *opts: torch.optim.Optimizer, mesh=None):
     """One gradient of ``loss`` with respect to every parameter the
     optimizers hold (an unused one gets zeros, as ``jax.grad`` gives), then
-    one step of each.  Only those parameters get a gradient."""
+    one step of each.  Only those parameters get a gradient.  With a
+    ``mesh`` the gradients are first averaged over the ranks, one
+    all-reduce for the whole tree (``pmean``, ``srgan_tpu/training/gan.py:
+    255-259``)."""
     params = [p for opt in opts for group in opt.param_groups
               for p in group["params"]]
     grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    if mesh is not None:
+        grads = _mean_over_ranks(grads, mesh)
     for p, g in zip(params, grads):
-        p.grad = torch.zeros_like(p) if g is None else g
+        p.grad = g
     for opt in opts:
         opt.step()
         opt.zero_grad(set_to_none=True)
@@ -230,10 +281,40 @@ class GANTrainer:
     tests override the seam to inject the JAX side's draws.
     ``compute_dtype="bfloat16"`` runs the forwards under ``torch.autocast``,
     as serving does; the losses are fp32.
+
+    Data parallel (``mesh``, a ``parallel.Mesh``): each rank steps on its
+    rows of the global batch (``shard_batch``) with the same parameters,
+    and both ``grad_sync`` values run the JAX package's manual recipe
+    (``srgan_tpu/training/gan.py:246-288, 494-497``): one all-reduce (mean)
+    of each update's gradients, the batch-global losses and the per-domain
+    masked LSGAN through ``parallel.collectives``, every draw the global
+    (n * b, d) one of the single-device step with this rank's rows taken,
+    and the metrics averaged over the ranks.  Under ``"auto"`` batch-norm
+    moments are also summed over the ranks, so the statistics are the
+    global batch's, as GSPMD makes them; ``"manual"`` refuses batch mode,
+    as the JAX package does (``:93-101``).  The fused diversification
+    kernel is a single-device path: with a mesh and
+    ``SRGAN_TPU_FUSED_DIV=1`` the trainer raises.
     """
 
-    def __init__(self, cfg: ExperimentConfig, device="cuda"):
+    def __init__(self, cfg: ExperimentConfig, device=None, mesh=None,
+                 grad_sync: str = "auto"):
         _check_config(cfg)
+        if grad_sync not in GRAD_SYNCS:
+            raise ValueError(f"grad_sync must be auto|manual, got "
+                             f"{grad_sync}")
+        if grad_sync == "manual" and mesh is None:
+            raise ValueError("grad_sync='manual' requires a mesh")
+        if grad_sync == "manual" and cfg.model.norm_type == "batch":
+            raise ValueError("grad_sync='manual' does not support "
+                             "norm_type='batch'; use grad_sync='auto'")
+        if device is None:
+            device = "cuda" if mesh is None else mesh.device
+        elif mesh is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        self.mesh = mesh
+        self._check_fused()
         if cfg.train.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r}: "
                              "float32 or bfloat16")
@@ -247,6 +328,13 @@ class GANTrainer:
         self.bf16 = cfg.train.compute_dtype == "bfloat16"
         self.rng = torch.Generator(device=self.device).manual_seed(
             cfg.train.seed + 1)
+
+    def _check_fused(self):
+        if self.mesh is not None and \
+                os.environ.get("SRGAN_TPU_FUSED_DIV") == "1":
+            raise ValueError("SRGAN_TPU_FUSED_DIV=1 with a mesh: the fused "
+                             "diversification kernel is a single-device "
+                             "path; unset it for data parallel")
 
     # ------------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None,
@@ -291,6 +379,14 @@ class GANTrainer:
                 self.device, torch.float32)
         else:
             hist_target = None
+        if self.mesh is not None:
+            from srgan_tpu_torch.parallel import replicate
+
+            # every rank starts from rank 0's weights and target
+            replicate([G, D, E, hist_target], self.mesh)
+            for m in list(G.modules()) + list(E.modules()):
+                if isinstance(m, (CBBNorm, BatchNorm)):
+                    m.mesh = self.mesh
         return GANTrainState(
             G=G, D=D, E=E,
             opt_g=adam(G.parameters(), t.adam_b1, t.adam_b2),
@@ -309,11 +405,41 @@ class GANTrainer:
         """The seam of every standard-normal draw inside the step."""
         return torch.randn(shape, generator=self.rng, device=self.device)
 
+    def _draw_batch(self, b: int, d: int) -> torch.Tensor:
+        """(b, d) standard normals; with a mesh, this rank's rows of the
+        global (n * b, d) draw, so the ranks take the single-device step's
+        draws (``srgan_tpu/training/gan.py:261-269``)."""
+        if self.mesh is None:
+            return self._draw_latent((b, d))
+        from srgan_tpu_torch.parallel.mesh import local_rows
+
+        return local_rows(self._draw_latent((self.mesh.size * b, d)),
+                          self.mesh)
+
     def _sample_latent(self, mu, logvar):
         """eps * exp(logvar / 2) + mu (``srgan_tpu/training/gan.py:
         271-273``)."""
-        eps = self._draw_latent(tuple(mu.shape))
+        eps = self._draw_batch(*mu.shape)
         return eps * torch.exp(0.5 * logvar) + mu
+
+    def _masked_lsgan(self, outputs, target, mask):
+        if self.mesh is None:
+            return L.masked_lsgan_loss(outputs, target, mask)
+        from srgan_tpu_torch.parallel import collectives as C
+
+        return C.global_masked_lsgan_loss(outputs, target, mask, self.mesh)
+
+    def _diversification(self, mu, logvar, hist_target):
+        lw, n_batch = self.cfg.loss, self.cfg.train.batch_size
+        if self.mesh is None:
+            return L.diversification_loss(mu, logvar, weights=lw,
+                                          n_batch=n_batch,
+                                          hist_target=hist_target)
+        from srgan_tpu_torch.parallel import collectives as C
+
+        return C.global_diversification_loss(
+            mu, logvar, weights=lw, n_batch=n_batch,
+            hist_target=hist_target, mesh=self.mesh)
 
     def _autocast(self):
         if not self.bf16:
@@ -341,10 +467,10 @@ class GANTrainer:
                 with self._autocast():
                     adv = Di(both)
                 total = total + (
-                    L.masked_lsgan_loss([a[:B] for a in adv], 1.0, src == i)
-                    + L.masked_lsgan_loss([a[B:] for a in adv], 0.0,
-                                          tgt == i))
-            _apply_grads(total, st.opt_d)
+                    self._masked_lsgan([a[:B] for a in adv], 1.0, src == i)
+                    + self._masked_lsgan([a[B:] for a in adv], 0.0,
+                                         tgt == i))
+            _apply_grads(total, st.opt_d, mesh=self.mesh)
             return total.detach() / len(st.D)
         with self._autocast():
             adv, cls = st.D(both)
@@ -353,7 +479,7 @@ class GANTrainer:
             errD = errD + lw.cls * L.domain_classification_loss(
                 [c[:B] for c in cls], onehot_src)
         errD = errD + L.lsgan_loss([a[B:] for a in adv], 0.0)
-        _apply_grads(errD, st.opt_d)
+        _apply_grads(errD, st.opt_d, mesh=self.mesh)
         return errD.detach()
 
     def _g_adversarial(self, D, fake, onehot_tgt, tgt):
@@ -367,7 +493,7 @@ class GANTrainer:
             for i, Di in enumerate(D):
                 with self._autocast():
                     adv = Di(fake)
-                errG = errG + L.masked_lsgan_loss(adv, 1.0, tgt == i) \
+                errG = errG + self._masked_lsgan(adv, 1.0, tgt == i) \
                     / len(D)
             return errG
         with self._autocast():
@@ -381,9 +507,21 @@ class GANTrainer:
     def step(self, state: GANTrainState, batch: Dict[str, Any],
              epoch: int = 0) -> Dict[str, torch.Tensor]:
         """One training iteration on ``batch`` ({"image": (B, H, W, C) in
-        [-1, 1], "source_label": (B,), "target_label": (B,)}).  Updates
-        ``state`` in place; returns the metrics as 0-dim fp32 tensors on
-        the device (errD, errG, errE, errG_ex and the loss_* terms)."""
+        [-1, 1], "source_label": (B,), "target_label": (B,)}; with a mesh,
+        this rank's rows of the global batch).  Updates ``state`` in place;
+        returns the metrics as 0-dim fp32 tensors on the device (errD, errG,
+        errE, errG_ex and the loss_* terms), with a mesh the global
+        batch's (the mean over the ranks)."""
+        self._check_fused()
+        with _mode(True, state.G, state.E):
+            metrics = self._step(state, batch, epoch)
+        if self.mesh is not None:
+            keys = sorted(metrics)
+            metrics = dict(zip(keys, _mean_over_ranks(
+                [metrics[key] for key in keys], self.mesh)))
+        return metrics
+
+    def _step(self, state: GANTrainState, batch, epoch):
         cfg, lw = self.cfg, self.cfg.loss
         k, ndim = cfg.train.unrolled_k, cfg.model.ndim
         n_classes = cfg.model.n_classes
@@ -414,7 +552,7 @@ class GANTrainer:
         # ---- k - 1 unrolled D updates, each with a fresh latent
         errD0 = None
         for i in range(k - 1):
-            latent = self._draw_latent((B, ndim))
+            latent = self._draw_batch(B, ndim)
             with torch.no_grad(), self._autocast():
                 fake = G(images, torch.cat([onehot_tgt, latent], 1))
             errD = self._d_update(state, images, fake, onehot_src, src, tgt)
@@ -424,7 +562,7 @@ class GANTrainer:
 
         # ---- phase 1: the k-th fake, computed once: its detached value
         # drives the k-th D update and its graph serves the G/E gradient
-        latent = self._draw_latent((B, ndim))
+        latent = self._draw_batch(B, ndim)
         cond_fake = torch.cat([onehot_tgt, latent], 1)
         with self._autocast():
             fake = G(images, cond_fake)
@@ -458,19 +596,18 @@ class GANTrainer:
             errG = errG + lw.idt * err_idt
             errE_out = errE_out + lw.idt * err_idt
             metrics["loss_idt"] = err_idt
-        errE, div_metrics = L.diversification_loss(
-            mu, logvar, weights=lw, n_batch=cfg.train.batch_size,
-            hist_target=state.hist_target)
+        errE, div_metrics = self._diversification(mu, logvar,
+                                                  state.hist_target)
         metrics.update(div_metrics)
         errE_out = errE_out + errE
-        _apply_grads(errG + errE, state.opt_g, state.opt_e)
+        _apply_grads(errG + errE, state.opt_g, state.opt_e, mesh=self.mesh)
 
         # ---- phase 2: G alone on the style regression, fresh forwards at
         # the phase-1-updated parameters
         if lw.idt_reg * lw.idt > 0:
             if self.conditional_e:
                 # SingleGAN flavour: a random source-style identity image
-                reg_target = self._draw_latent((B, ndim))
+                reg_target = self._draw_batch(B, ndim)
                 style = reg_target
             else:
                 # SRGAN flavour: an encoder-driven identity image
@@ -490,7 +627,7 @@ class GANTrainer:
             with self._autocast():
                 mu_t = self._E(E, G(images, cond_fake), onehot_tgt)[0]
             errG_ex = lw.reg * L.l1_loss(latent, mu_t)
-        _apply_grads(errG_ex, state.opt_g)
+        _apply_grads(errG_ex, state.opt_g, mesh=self.mesh)
         if snapshot is not None:
             # D's parameters back to the post-first-update values; Adam's
             # moments keep all k updates (srgan_tpu/training/gan.py:506)

@@ -8,6 +8,13 @@ JSONL file and draws a progress grid at each log (thinned by
 at the end, resumes from its latest checkpoint, and on SIGTERM or SIGINT
 finishes the step, checkpoints and stops.  Batches reach the device through
 ``prefetch_to_device``.
+
+Data parallel (``mesh``, a ``parallel.Mesh`` of every rank, each running
+this function): every rank decodes and steps on its rows of each global
+batch and resumes from the same checkpoint; rank 0 alone writes
+``config.json``, the synthetic fixture, ``metrics.jsonl``, the grids, the
+profile and the checkpoints; a stop signal on any rank stops every rank at
+the same epoch.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import tempfile
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from srgan_tpu_torch.configs import (
     ExperimentConfig,
@@ -45,16 +53,22 @@ def build_datasets(cfg: ExperimentConfig, data_root: Optional[str] = None,
                    attr_file: Optional[str] = None,
                    label_root: Optional[str] = None,
                    synthetic_dir: Optional[str] = None,
-                   synthetic_per_class: int = 16):
+                   synthetic_per_class: int = 16,
+                   write_fixture: bool = True):
     """(train, sample) ``FaceDataset``s of ``data_root``; without one, of a
     synthetic fixture written to ``synthetic_dir`` (default: a folder in the
-    temporary directory), with the preset's ``test_num`` cut to a quarter
+    temporary directory; ``write_fixture=False`` reads the one another
+    process wrote there), with the preset's ``test_num`` cut to a quarter
     of a class where it would swallow the fixture."""
     if data_root is None:
         synthetic_dir = synthetic_dir or os.path.join(
             tempfile.gettempdir(), "srgan_tpu_torch_synthetic")
-        data_root, attr_file = make_synthetic_celeba(
-            synthetic_dir, n_per_class=synthetic_per_class)
+        if write_fixture:
+            data_root, attr_file = make_synthetic_celeba(
+                synthetic_dir, n_per_class=synthetic_per_class)
+        else:
+            data_root = os.path.join(synthetic_dir, "img")
+            attr_file = os.path.join(synthetic_dir, "list_attr_celeba.txt")
         if cfg.train.test_num >= synthetic_per_class:
             cfg = dataclasses.replace(cfg, train=dataclasses.replace(
                 cfg.train, test_num=max(synthetic_per_class // 4, 1)))
@@ -103,6 +117,20 @@ def _check_resume_config(cfg: ExperimentConfig, cfg_json: str):
             "overrides, or use a fresh --out dir")
 
 
+def _barrier(mesh):
+    if mesh is not None:
+        dist.barrier()
+
+
+def _any_rank(flag: bool, mesh) -> bool:
+    """``flag`` on this rank, or on any rank of ``mesh``."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([float(flag)], device=mesh.device)
+    dist.all_reduce(t)
+    return bool(t.item() > 0)
+
+
 def _check_finite(metrics: Dict[str, torch.Tensor], epoch: int, step: int):
     for k, v in metrics.items():
         if not bool(torch.isfinite(v).all()):
@@ -126,7 +154,9 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
               debug_nans: bool = False,
               synthetic_dir_override: Optional[str] = None,
               device="cuda",
-              decode: str = "native"):
+              decode: str = "native",
+              mesh=None,
+              grad_sync: str = "auto"):
     """Train ``cfg`` for ``epochs`` (default ``cfg.train.epochs``) into
     ``out_dir``: ``config.json``, ``metrics.jsonl`` and ``ckpt/step_N``
     (N = epochs completed).  Returns (trainer, state).
@@ -138,31 +168,41 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
     ``sample_grids`` writes ``progress_e{epoch:03d}_i{it:05d}.png`` of a
     test-split image at every log of every ``grid_every_epochs``-th epoch
     (``srgan_tpu/training/loop.py:191-210``); it needs matplotlib, and
-    raises before anything else where it is missing."""
+    raises before anything else where it is missing.
+
+    ``mesh`` and ``grad_sync`` train data parallel, as ``GANTrainer`` does
+    (``srgan_tpu/training/loop.py:68-69, 122``); the device is the mesh's.
+    """
     if sample_grids:
         viz.require_matplotlib("sample_grids=True (the CLI's default; "
                                "--no-sample-grids turns the grids off)")
-    device = resolve_device(device)
+    device = resolve_device(device if mesh is None else mesh.device)
+    writer = mesh is None or mesh.rank == 0
     os.makedirs(out_dir, exist_ok=True)
     cfg_json = os.path.join(out_dir, "config.json")
     if resume and os.path.exists(cfg_json):
         _check_resume_config(cfg, cfg_json)
-    else:
+    elif writer:
         save_config(cfg, out_dir)
+    if not writer:
+        # the fixture: written by rank 0, then read
+        _barrier(mesh)
     train_ds, sample_ds = build_datasets(
         cfg, data_root, attr_file, label_root,
         synthetic_dir=synthetic_dir_override,
-        synthetic_per_class=synthetic_per_class)
+        synthetic_per_class=synthetic_per_class, write_fixture=writer)
+    if writer:
+        _barrier(mesh)
     loader = DataLoader(train_ds, batch_size=cfg.train.batch_size,
                         drop_last=cfg.train.drop_last,
                         classes=tuple(range(cfg.model.n_classes)),
-                        seed=cfg.train.seed, decode=decode)
+                        seed=cfg.train.seed, decode=decode, mesh=mesh)
     if len(loader) == 0:
         raise ValueError(
             f"dataset ({len(train_ds)}) smaller than batch "
             f"({cfg.train.batch_size}); lower batch_size or add data")
 
-    trainer = GANTrainer(cfg, device)
+    trainer = GANTrainer(cfg, device, mesh=mesh, grad_sync=grad_sync)
     if cfg.pretrained_encoder and classifier_ckpt is None:
         raise ValueError("pretrained_encoder config needs classifier_ckpt "
                          "(run pretrain_classifier first, nb04 equivalent)")
@@ -178,7 +218,8 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
         print(f"resumed from epoch {start_epoch} (checkpoint step = epochs "
               "completed)")
 
-    logger = MetricLogger(os.path.join(out_dir, "metrics.jsonl"), echo=echo)
+    logger = MetricLogger(os.path.join(out_dir, "metrics.jsonl")
+                          if writer else None, echo=echo and writer)
     timer = StepTimer()
     epochs = epochs if epochs is not None else cfg.train.epochs
     interval = max(len(loader) // 3, 1)
@@ -202,7 +243,7 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
     # the grids' random latents, apart from the step's draws
     grid_gen = torch.Generator().manual_seed(cfg.train.seed + 2)
     profiler = None
-    if profile_dir:
+    if profile_dir and writer:
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
@@ -220,7 +261,7 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
                 step += 1
                 if debug_nans:
                     _check_finite(metrics, epoch, step)
-                if it % interval == 0:
+                if it % interval == 0 and writer:
                     # converting the metrics waits for the device, so the
                     # throughput meter, read after it, counts whole steps
                     values = {k: float(v) for k, v in metrics.items()}
@@ -237,12 +278,14 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
                         viz.close(fig)
             # step = epochs completed, as the stop and final saves and the
             # resume (which re-enters at epoch == step) count
-            if checkpoint_every and epoch % checkpoint_every == 0:
+            if checkpoint_every and epoch % checkpoint_every == 0 and writer:
                 save_checkpoint(ckpt_dir, state, step=epoch + 1)
-            if stop_requested:
+            if _any_rank(bool(stop_requested), mesh):
+                stop_requested = stop_requested or ["another rank's"]
                 print(f"signal {stop_requested[0]} received: checkpointing "
                       f"at epoch {epoch + 1} and stopping")
-                save_checkpoint(ckpt_dir, state, step=epoch + 1)
+                if writer:
+                    save_checkpoint(ckpt_dir, state, step=epoch + 1)
                 break
     finally:
         # the caller (a notebook, a test) keeps a working Ctrl-C
@@ -254,6 +297,7 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
             profiler.export_chrome_trace(os.path.join(profile_dir,
                                                       "trace.json"))
         logger.close()
-    if not stop_requested:
+    if not stop_requested and writer:
         save_checkpoint(ckpt_dir, state, step=epochs)
+    _barrier(mesh)
     return trainer, state

@@ -8,7 +8,11 @@ the same key layout (the reference's ``SingleGenerator``, ``Encoder``,
 and torchvision's ``vgg19_bn``), computed from parameter trees given as
 nested dicts of numpy arrays, so the port needs no JAX to read them.
 ``load_state_dict_file`` reads the ``generator.pth`` / ``encoder.pth`` that
-``scripts/export_torch_checkpoint.py`` writes.
+``scripts/export_torch_checkpoint.py`` writes.  In batch-norm mode the
+generator and encoder bridges also take the JAX ``batch_stats`` collection
+(``{"mean", "var"}`` of each norm) into the ``running_mean`` /
+``running_var`` buffers, and the flax ``BatchNorm`` layers' ``scale`` /
+``bias`` into ``up_norms.{j}`` and ``layers.{i}.norm{1,2}``.
 
 ``save_checkpoint`` / ``restore_checkpoint`` keep a training state under
 ``<path>/step_N/`` (the JAX package's layout of its orbax directories,
@@ -17,7 +21,8 @@ nested dicts of numpy arrays, so the port needs no JAX to read them.
 per-domain Ds of the ``singlegan`` trainer as one ``nn.ModuleList``, each
 domain's keys under ``{i}.``), and
 the three Adam state dicts, the step and the histogram target in
-``train_state.pth``.  The orbax format is the JAX package's and is not read
+``train_state.pth``; in batch-norm mode G's and E's state dicts carry their
+running statistics, so a run resumes, and is served, with them.  The orbax format is the JAX package's and is not read
 here.
 """
 
@@ -49,31 +54,50 @@ def _vec(a):
 
 
 class _Exporter:
-    """Collects torch-key -> tensor assignments from a parameter tree."""
+    """Collects torch-key -> tensor assignments from a parameter tree and,
+    in batch-norm mode, its ``batch_stats`` tree."""
 
-    def __init__(self, params: Mapping):
+    def __init__(self, params: Mapping, batch_stats: Optional[Mapping] = None):
         self.params = params
+        self.stats = batch_stats
         self.sd: Dict[str, torch.Tensor] = {}
 
-    def put(self, key: str, path, fn):
-        node = self.params
+    def put(self, key: str, path, fn, tree=None):
+        node = self.params if tree is None else tree
         for p in path:
             node = node[p]
         self.sd[key] = torch.from_numpy(np.array(fn(node), np.float32))
 
+    def running(self, prefix: str, path):
+        for key, stat in (("running_mean", "mean"), ("running_var", "var")):
+            self.put(f"{prefix}.{key}", path + (stat,), _vec, self.stats)
+
     def cbinorm(self, prefix: str, path):
+        """CBINorm, or CBBNorm with its running statistics in batch mode."""
         self.put(f"{prefix}.ConBias.0.weight", path + ("con_bias", "kernel"),
                  _inv_lin_w)
         self.put(f"{prefix}.ConBias.0.bias", path + ("con_bias", "bias"),
                  _vec)
         self.put(f"{prefix}.weight", path + ("scale",), _vec)
         self.put(f"{prefix}.bias", path + ("bias",), _vec)
+        if self.stats is not None:
+            self.running(prefix, path)
+
+    def batchnorm(self, prefix: str, path):
+        """A flax ``BatchNorm``: ``scale`` / ``bias`` and running stats."""
+        self.put(f"{prefix}.weight", path + ("scale",), _vec)
+        self.put(f"{prefix}.bias", path + ("bias",), _vec)
+        self.running(prefix, path)
 
 
 def generator_state_dict_from_jax(params: Mapping, num_cls: int = 2,
-                                  res_num: int = 6) -> Dict[str, torch.Tensor]:
-    """JAX ``SingleGenerator`` params -> the port's generator state dict."""
-    ex = _Exporter(params)
+                                  res_num: int = 6,
+                                  batch_stats: Optional[Mapping] = None
+                                  ) -> Dict[str, torch.Tensor]:
+    """JAX ``SingleGenerator`` params -> the port's generator state dict;
+    with ``batch_stats`` (batch-norm mode) its running statistics and the
+    up path's ``BatchNorm`` layers too."""
+    ex = _Exporter(params, batch_stats)
     for i in range(num_cls + 1):
         ex.put(f"down_convs.{i}.weight", (f"down_conv_{i}", "kernel"),
                _inv_conv_w)
@@ -87,6 +111,8 @@ def generator_state_dict_from_jax(params: Mapping, num_cls: int = 2,
     for j in range(num_cls):
         ex.put(f"up_convs.{j}.weight", (f"up_conv_{j}", "kernel"),
                _inv_convT_w)
+        if batch_stats is not None:
+            ex.batchnorm(f"up_norms.{j}", (f"up_norm_{j}",))
     ex.put(f"up_convs.{num_cls}.weight", ("up_conv_out", "kernel"),
            _inv_conv_w)
     return ex.sd
@@ -108,6 +134,9 @@ def _encoder_trunk(ex: _Exporter, num_cls: int, conditional: bool = False):
         if conditional:
             ex.cbinorm(f"layers.{i}.cnorm1", (blk, "cnorm1"))
             ex.cbinorm(f"layers.{i}.cnorm2", (blk, "cnorm2"))
+        elif ex.stats is not None:
+            ex.batchnorm(f"layers.{i}.norm1", (blk, "norm1"))
+            ex.batchnorm(f"layers.{i}.norm2", (blk, "norm2"))
 
 
 def _heads(ex: _Exporter, heads):
@@ -116,35 +145,40 @@ def _heads(ex: _Exporter, heads):
         ex.put(f"{head}.bias", (head, "bias"), _vec)
 
 
-def encoder_state_dict_from_jax(params: Mapping, num_cls: int = 4
+def encoder_state_dict_from_jax(params: Mapping, num_cls: int = 4,
+                                batch_stats: Optional[Mapping] = None
                                 ) -> Dict[str, torch.Tensor]:
     """JAX (unconditional) ``Encoder`` params -> the port's encoder state
-    dict."""
-    ex = _Exporter(params)
+    dict; with ``batch_stats``, batch-norm mode's ``BatchNorm`` layers."""
+    ex = _Exporter(params, batch_stats)
     _encoder_trunk(ex, num_cls)
     _heads(ex, ("fcmean", "fcvar", "fcclass"))
     return ex.sd
 
 
-def encoder_original_state_dict_from_jax(params: Mapping, num_cls: int = 4
+def encoder_original_state_dict_from_jax(params: Mapping, num_cls: int = 4,
+                                         batch_stats: Optional[Mapping] = None
                                          ) -> Dict[str, torch.Tensor]:
     """JAX ``EncoderOriginal`` (conditional) params -> the port's
     ``EncoderOriginal`` state dict: the trunk with each block's
     ``cnorm1`` / ``cnorm2``, ``fcmean`` and ``fcvar``
-    (``srgan_tpu/utils/checkpoint.py:439-467``, ``conditional=True``)."""
-    ex = _Exporter(params)
+    (``srgan_tpu/utils/checkpoint.py:439-467``, ``conditional=True``); with
+    ``batch_stats``, the CBBNorms' running statistics."""
+    ex = _Exporter(params, batch_stats)
     _encoder_trunk(ex, num_cls, conditional=True)
     _heads(ex, ("fcmean", "fcvar"))
     return ex.sd
 
 
-def classifier_state_dict_from_jax(params: Mapping, num_cls: int = 4
+def classifier_state_dict_from_jax(params: Mapping, num_cls: int = 4,
+                                   batch_stats: Optional[Mapping] = None
                                    ) -> Dict[str, torch.Tensor]:
     """JAX ``EncoderClassifier`` params (or a full ``Encoder``'s, whose
     ``fcmean`` / ``fcvar`` are left out) -> the port's classifier state dict,
     the reference's ``Encoder_classifier`` layout
-    (``srgan_tpu/utils/checkpoint.py:470-479``)."""
-    ex = _Exporter(params)
+    (``srgan_tpu/utils/checkpoint.py:470-479``); with ``batch_stats``,
+    batch-norm mode's ``BatchNorm`` layers."""
+    ex = _Exporter(params, batch_stats)
     _encoder_trunk(ex, num_cls)
     _heads(ex, ("fcclass",))
     return ex.sd

@@ -51,7 +51,11 @@ FEED = ("srgan_tpu_torch.data", "srgan_tpu_torch.data.attributes",
         # visualisation (matplotlib and PIL imported where they draw) and
         # its CLIs, and the server
         "srgan_tpu_torch.utils.viz", "srgan_tpu_torch.sample_sweep",
-        "srgan_tpu_torch.plot_losses", "srgan_tpu_torch.serve")
+        "srgan_tpu_torch.plot_losses", "srgan_tpu_torch.serve",
+        # data parallel over torch.distributed, and the batch-norm mode's
+        # layers
+        "srgan_tpu_torch.parallel", "srgan_tpu_torch.parallel.mesh",
+        "srgan_tpu_torch.parallel.collectives", "srgan_tpu_torch.nn.layers")
 
 
 def test_port_and_chip_smoke_import_no_jax_or_srgan_tpu():
