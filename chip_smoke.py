@@ -118,10 +118,24 @@ from the root of a checkout; no install step, no argument.  Phases:
      histogram launches as phase 8 derives them, then one more step each;
      step ms and peak memory per rank.  The only phase where the
      collectives meet CUDA tensors; it checks correctness across ranks,
-     not scaling.  A rank that fails fails the phase.
+     not scaling.  A rank that fails fails the phase;
+ 18. the script twins, in the same temporary directory: ``make_fixture
+     --recipe boost`` twice (the same bytes, its fixture.json),
+     ``build_label_folder`` on that attribute file, ``translation_oracle``
+     on phase 10's checkpoint and fixture (the oracle perfect on the real
+     images, the pair table printed, one G forward's norm launches per
+     translate), ``compare_results --json-out`` on phase 13's PRDC pickle
+     with no pandas imported, ``bench_loader`` (PIL, and native or null
+     with the reason it could not build), ``data_scale_dryrun`` at the
+     full 202,599 rows (41 chunks, splits of 40,000 / 2,000 / 2,000,
+     44,000 images, pool 256, batch 128, 24 batches), and
+     ``bench_serving`` on 03_srgan_nopretraining at full width in fp32
+     (TF32 off) and bf16: p50 and p95 at batch 1, 8, 32 and 128, the
+     device-only ms a forward at 128, the norm launches as derived.
 
-Each entry point of phases 11-13 runs with TF32 turned on before it and
-must turn it off itself (``resolve_device``), as it does for its users.
+Each entry point of phases 11-13 and 18 that touches the card runs with
+TF32 turned on before it and must turn it off itself (``resolve_device``),
+as it does for its users.
 
 Without CUDA it raises before printing a result.  It starts no server; its
 subprocesses are nvidia-smi, nvcc and g++ (the host probes and the native
@@ -129,9 +143,9 @@ decoder's build), each with a timeout, its threads are the loader's
 workers, joined at the end of each epoch, and phase 17's two ranks, joined
 (or killed at a timeout) before it goes on.  Before the last line it prints
 the `kernels`, `training`, `serving`, `loop`, `classifier`, `vgg`,
-`evaluation`, `variants`, `visualisation`, `batch_norm` and
-`data_parallel` JSON lines; the last line is {"ok": true, "device":
-{...}}.
+`evaluation`, `variants`, `visualisation`, `batch_norm`,
+`data_parallel` and `scripts` JSON lines; the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -2065,6 +2079,28 @@ def vgg_phase(work, decode, name, power_limit):
         cli=runs), os.path.join(work, "vgg_init", "vgg_celeba_best.pth")
 
 
+def g_forward_launches(g_per):
+    """The kernel launches of one G forward: ``g_per`` norm forwards."""
+    return {"cbinorm_fwd": g_per, "cbinorm_bwd": 0, "soft_histogram_fwd": 0,
+            "soft_histogram_bwd": 0, "diversification_fwd": 0}
+
+
+def count_transforms():
+    """Wraps ``gan.transform`` to record each call's kernel launches;
+    returns the list they go into and the function that unwraps it."""
+    real, per_call = gan.transform, []
+
+    def counting(*a, **k):
+        before = read_counts()
+        result = real(*a, **k)
+        per_call.append({key: v - before[key]
+                         for key, v in read_counts().items()})
+        return result
+
+    gan.transform = counting
+    return per_call, lambda: setattr(gan, "transform", real)
+
+
 def evaluation_phase(g_per, loop_out, vgg_pth, work, name, power_limit):
     """Phase 13.  Returns the `evaluation` record."""
     import pickle
@@ -2086,29 +2122,17 @@ def evaluation_phase(g_per, loop_out, vgg_pth, work, name, power_limit):
             "--test-num", str(EVAL_SAMPLES), "--nearest-k", str(EVAL_K),
             "--device", DEV, "--out", pkl]
     say("python -m srgan_tpu_torch.evaluate_prdc " + " ".join(argv))
-    real_transform = gan.transform
-    per_call = []
-
-    def counting(*a, **k):
-        before = read_counts()
-        result = real_transform(*a, **k)
-        per_call.append({key: v - before[key]
-                         for key, v in read_counts().items()})
-        return result
-
-    gan.transform = counting
+    per_call, unwrap = count_transforms()
     reset_counts()
     t0 = time.perf_counter()
     try:
         run_cli(evaluate_prdc.main, argv)
     finally:
-        gan.transform = real_transform
+        unwrap()
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     counts = read_counts()
-    per_translate = {"cbinorm_fwd": g_per, "cbinorm_bwd": 0,
-                     "soft_histogram_fwd": 0, "soft_histogram_bwd": 0,
-                     "diversification_fwd": 0}
+    per_translate = g_forward_launches(g_per)
     check(len(per_call) == 16 and all(c == per_translate for c in per_call),
           f"launches per translate {per_call}, derived {per_translate}")
     check(counts == {k: 16 * v for k, v in per_translate.items()},
@@ -2769,6 +2793,230 @@ def data_parallel_phase(g_per, e_per, work, name, power_limit):
              "scaling"), want
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the script twins
+# ---------------------------------------------------------------------------
+
+FIXTURE_RECIPE = "boost"
+ORACLE_TEST_NUM = 16
+LOADER_BENCH = dict(per_class=64, batch_size=32, epochs=4)
+DRYRUN = dict(n_rows=202_599, pixel_pool=256, batch_size=128,
+              bench_batches=24, workers=8)
+# the reference's splits (10,000 / 500 / 500 a class) over 4 classes: 41
+# label chunks of 5,000 rows and 44,000 selected images
+DRYRUN_SPLITS = dict(train=40_000, val=2_000, test=2_000)
+SERVING_PRESET = "03_srgan_nopretraining"
+SERVING_SIZES = (1, 8, 32, 128)
+SERVING_ITERS = 30
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def _same_bytes(a, b, rel):
+    with open(os.path.join(a, rel), "rb") as fa, \
+            open(os.path.join(b, rel), "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def scripts_phase(g_per, e_per, loop_out, work, name, power_limit):
+    """Phase 18, in ``work`` (phases 10 and 13 left their run, fixture and
+    PRDC pickle there).  Returns the `scripts` record."""
+    from srgan_tpu_torch import (
+        bench_loader,
+        bench_serving,
+        build_label_folder,
+        compare_results,
+        data_scale_dryrun,
+        make_fixture,
+        translation_oracle,
+    )
+    from srgan_tpu_torch.data import load_label_store
+
+    say("== phase 18: the script twins: make_fixture, build_label_folder, "
+        "translation_oracle, compare_results, bench_loader, "
+        f"data_scale_dryrun ({DRYRUN['n_rows']} rows), bench_serving "
+        f"({SERVING_PRESET} at full width, fp32 and bf16)")
+    record = dict(card=name, power_limit=power_limit)
+    t_phase = time.perf_counter()
+
+    # make_fixture twice: the same bytes
+    t0 = time.perf_counter()
+    outs = [os.path.join(work, f"fixture_{i}") for i in (1, 2)]
+    for out in outs:
+        make_fixture.main(["--recipe", FIXTURE_RECIPE, "--out", out])
+    files = _files(outs[0])
+    n_png = sum(f.endswith(".png") for f in files)
+    want_png = 4 * make_fixture.RECIPES[FIXTURE_RECIPE]["n_per_class"]
+    check(files == _files(outs[1]) and n_png == want_png
+          and "fixture.json" in files and "list_attr_celeba.txt" in files,
+          f"make_fixture wrote {len(files)} files, {n_png} PNGs")
+    check(all(_same_bytes(*outs, f) for f in files),
+          "make_fixture's two runs differ")
+    with open(os.path.join(outs[0], "fixture.json")) as f:
+        recorded = json.load(f)
+    check(recorded == {"recipe": FIXTURE_RECIPE,
+                       "params": make_fixture.RECIPES[FIXTURE_RECIPE]},
+          f"fixture.json {recorded}")
+    record["make_fixture"] = dict(recipe=FIXTURE_RECIPE, files=len(files),
+                                  pngs=n_png, byte_equal=True,
+                                  seconds=time.perf_counter() - t0)
+    say(f"make_fixture --recipe {FIXTURE_RECIPE}: twice, {len(files)} files "
+        f"({n_png} PNGs), byte-equal")
+
+    # build_label_folder on that attribute file
+    attr = os.path.join(outs[0], "list_attr_celeba.txt")
+    chunks = build_label_folder.main(["--attr-file", attr, "--out",
+                                      os.path.join(work, "label_folder")])
+    rows = sum(len(c) for c in load_label_store(
+        os.path.join(work, "label_folder")))
+    check(len(chunks) == 1 and rows == want_png,
+          f"build_label_folder: {len(chunks)} chunks, {rows} rows")
+    record["build_label_folder"] = dict(chunks=len(chunks), rows=rows)
+
+    # translation_oracle on phase 10's checkpoint and fixture
+    img_root, attr_file = loop_out["data"]
+    oracle_out = os.path.join(work, "oracle.json")
+    argv = ["--ckpt", os.path.join(loop_out["run"], "ckpt"), "--data-root",
+            img_root, "--attr-file", attr_file, "--test-num",
+            str(ORACLE_TEST_NUM), "--device", DEV, "--out", oracle_out]
+    say("python -m srgan_tpu_torch.translation_oracle " + " ".join(argv))
+    per_call, unwrap = count_transforms()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        run_cli(translation_oracle.main, argv)
+    finally:
+        unwrap()
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    oracle_counts = read_counts()
+    with open(oracle_out) as f:
+        summary = json.load(f)
+    per_translate = g_forward_launches(g_per)
+    check(len(per_call) == 24 and all(c == per_translate for c in per_call),
+          f"oracle: launches per translate {per_call}, derived "
+          f"{per_translate} (one G forward each)")
+    check(oracle_counts == {k: 24 * v for k, v in per_translate.items()},
+          f"oracle: launches {oracle_counts}")
+    check(list(summary) == ["real_acc", "init", "trained"]
+          and all(list(summary[k]) == ["acc", "perfect_pairs", "pairs"]
+                  and len(summary[k]["pairs"]) == 12
+                  for k in ("init", "trained")), f"oracle keys {summary}")
+    check(summary["real_acc"] == 1.0,
+          f"the oracle scores real images at {summary['real_acc']}")
+    for key in ("init", "trained"):
+        pairs = summary[key]["pairs"]
+        say(f"oracle {key}: acc {summary[key]['acc']:.3f}, perfect pairs "
+            f"{summary[key]['perfect_pairs']}; source -> target: "
+            + " ".join(f"{p} {v:.3f}" for p, v in pairs.items()))
+    record["translation_oracle"] = dict(
+        argv=argv, seconds=oracle_s, launches=oracle_counts,
+        launches_per_translate=per_translate, **summary)
+
+    # compare_results on phase 13's PRDC pickle, without pandas
+    tables_out = os.path.join(work, "tables.json")
+    tables = compare_results.main([os.path.join(work, "prdc.pkl"),
+                                   "--names", "phase13", "--json-out",
+                                   tables_out])
+    check("pandas" not in sys.modules, "compare_results imported pandas")
+    model = tables["models"]["phase13"]
+    check(tables["classes"] == [0, 1, 2, 3]
+          and sorted(model) == ["vgg-CelebA", "vgg-initialization"]
+          and all(sorted(model[fe]) == sorted(compare_results.METRICS)
+                  and all(math.isfinite(v) for row in
+                          model[fe][m]["source_x_target"] for v in row)
+                  for fe in model for m in model[fe]),
+          f"compare_results tables {tables}")
+    record["compare_results"] = {
+        fe: {m: model[fe][m]["mean_translation_pairs"] for m in model[fe]}
+        for fe in model}
+
+    def native_checked(entry, where):
+        if entry["native"] is None:
+            check(bool(entry.get("native_error")),
+                  f"{where}: native is null without a reason")
+        return entry["native"] is not None
+
+    # bench_loader: PIL, and native or null with its reason
+    bl = bench_loader.main(cli_arg_list(**LOADER_BENCH)
+                           + ["--out", os.path.join(work, "loader.json")])
+    has_native = native_checked(bl, "bench_loader")
+    check(bl["pil"] > 0 and (not has_native or bl["native"] > 0),
+          f"bench_loader {bl}")
+    record["bench_loader"] = bl
+    say(f"bench_loader: pil {bl['pil']:.1f} img/s, native "
+        + (f"{bl['native']:.1f} img/s" if has_native else
+           "null: " + bl["native_error"].splitlines()[0]))
+
+    # data_scale_dryrun at the reference's scale
+    t0 = time.perf_counter()
+    dr = data_scale_dryrun.main(
+        cli_arg_list(**DRYRUN)
+        + ["--workdir", os.path.join(work, "scale"),
+           "--out", os.path.join(work, "dryrun.json")])
+    dry_s = time.perf_counter() - t0
+    sizes = {k: v["size"] for k, v in dr["splits"].items()}
+    check(dr["n_rows"] == DRYRUN["n_rows"]
+          and dr["label_chunks"] == -(-DRYRUN["n_rows"] // 5000)
+          and sizes == DRYRUN_SPLITS
+          and dr["selected_images"] == sum(DRYRUN_SPLITS.values()),
+          f"dry run: {dr['label_chunks']} chunks, splits {sizes}, "
+          f"{dr['selected_images']} selected")
+    native_checked(dr["loader"], "data_scale_dryrun")
+    check(dr["loader"]["pil"]["img_per_s"] > 0, "dry run: no PIL rate")
+    dr["seconds"] = dry_s
+    record["data_scale_dryrun"] = dr
+    host = {k: dr[k] for k in ("synthesize_attr_s", "parse_attr_s",
+                               "build_label_folder_s", "load_label_store_s",
+                               "hardlink_s")}
+    say(f"data_scale_dryrun: {dr['label_chunks']} chunks, splits {sizes}, "
+        f"{dr['selected_images']} images; host stages "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+        + f" s; pil {dr['loader']['pil']['img_per_s']:.1f} img/s; native "
+        + (f"{dr['loader']['native']['img_per_s']:.1f} img/s"
+           if dr["loader"]["native"] else "null"))
+
+    # bench_serving at full width, fp32 (TF32 off) and bf16
+    record["bench_serving"], serving_counts = {}, {}
+    calls = len(SERVING_SIZES) + len(SERVING_SIZES) * (SERVING_ITERS + 1) \
+        + 2 * bench_serving.N_CHAIN
+    want = dict(g_forward_launches(g_per * calls),
+                cbinorm_fwd=g_per * calls + e_per * len(SERVING_SIZES))
+    for dtype in ("float32", "bfloat16"):
+        argv = ["--preset", SERVING_PRESET, "--batch-sizes",
+                ",".join(map(str, SERVING_SIZES)), "--iters",
+                str(SERVING_ITERS), "--compute-dtype", dtype, "--device",
+                DEV, "--out", os.path.join(work, f"serving_{dtype}.json")]
+        reset_counts()
+        run_cli(bench_serving.main, argv)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        with open(argv[-1]) as f:
+            results = json.load(f)
+        check(counts == want, f"bench_serving {dtype}: launches {counts}, "
+              f"derived {want} ({calls} G forwards of {g_per} and "
+              f"{len(SERVING_SIZES)} warm-up E forwards of {e_per})")
+        rows = results["batches"]
+        check([r["batch"] for r in rows] == list(SERVING_SIZES)
+              and all(0 < r["p50_ms"] <= r["p95_ms"] for r in rows)
+              and results["device_only"]["batch"] == max(SERVING_SIZES),
+              f"bench_serving {dtype}: {results}")
+        serving_counts[dtype] = counts["cbinorm_fwd"]
+        record["bench_serving"][dtype] = results
+        say(f"bench_serving {dtype}: "
+            + "; ".join(f"batch {r['batch']} p50 {r['p50_ms']:.3f} p95 "
+                        f"{r['p95_ms']:.3f} ms ({r['img_per_sec_p50']:.1f} "
+                        "img/s)" for r in rows)
+            + f"; device only at {results['device_only']['batch']}: "
+            f"{results['device_only']['ms_per_forward']:.3f} ms a forward; "
+            f"cbinorm_fwd launches {counts['cbinorm_fwd']}")
+    record["phase_s"] = time.perf_counter() - t_phase
+    return record, oracle_counts["cbinorm_fwd"], serving_counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -2840,13 +3088,17 @@ def main():
             data_parallel, dp_launches = data_parallel_phase(
                 g_per, e_per, work, name, power_limit)
             t7 = time.perf_counter()
+            scripts, oracle_launches, bench_serving_launches = \
+                scripts_phase(g_per, e_per, loop_out, work, name,
+                              power_limit)
+            t8 = time.perf_counter()
             classifier["phase_s"], vgg["phase_s"] = t1 - t0, t2 - t1
             evaluation["phase_s"] = t3 - t2
             variants["phase_s"], visualisation["phase_s"] = t4 - t3, t5 - t4
             batch_norm["phase_s"], data_parallel["phase_s"] = t6 - t5, t7 - t6
-            say(f"phases 11-17: {t1 - t0:.1f}, {t2 - t1:.1f}, "
+            say(f"phases 11-18: {t1 - t0:.1f}, {t2 - t1:.1f}, "
                 f"{t3 - t2:.1f}, {t4 - t3:.1f}, {t5 - t4:.1f}, "
-                f"{t6 - t5:.1f}, {t7 - t6:.1f} s")
+                f"{t6 - t5:.1f}, {t7 - t6:.1f}, {t8 - t7:.1f} s")
         finally:
             tempfile.tempdir = saved_tempdir
 
@@ -2876,6 +3128,11 @@ def main():
             entry["dg_db_rel_err_vs_float64"] = dgdb["kernel"]
         if kn == "cbinorm_fwd":
             entry["launches_serving"] = serving["launches"]
+            entry["launches_bench_serving"] = bench_serving_launches
+            entry["launches_oracle"] = oracle_launches
+            check(oracle_launches > 0 and all(
+                n > 0 for n in bench_serving_launches.values()),
+                f"{kn} was not launched by the oracle or bench_serving")
         entry["launches_loop"] = loop_launches[kn]
         entry["launches_batch_mode"] = bn_launches[kn]
         entry["launches_data_parallel_rank"] = dp_launches[kn]
@@ -2927,7 +3184,7 @@ def main():
     say(json.dumps({"training": training}))
     say(json.dumps({"serving": serving}))
     say(json.dumps({"loop": loop_record}))
-    say(f"phases 1-17: {time.perf_counter() - t_script:.1f} s")
+    say(f"phases 1-18: {time.perf_counter() - t_script:.1f} s")
     say(json.dumps({"classifier": classifier}))
     say(json.dumps({"vgg": vgg}))
     say(json.dumps({"evaluation": evaluation}))
@@ -2935,6 +3192,7 @@ def main():
     say(json.dumps({"visualisation": visualisation}))
     say(json.dumps({"batch_norm": batch_norm}))
     say(json.dumps({"data_parallel": data_parallel}))
+    say(json.dumps({"scripts": scripts}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

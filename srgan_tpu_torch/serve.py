@@ -25,12 +25,11 @@ the model, else --preset does.
 from __future__ import annotations
 
 import argparse
-import os
 from http.server import ThreadingHTTPServer
 
 from srgan_tpu_torch.configs import PRESETS, load_config_for_ckpt
 from srgan_tpu_torch.serving import Translator, make_handler
-from srgan_tpu_torch.utils.checkpoint import latest_step
+from srgan_tpu_torch.utils.checkpoint import step_dir
 
 
 def parse_args(argv=None):
@@ -60,13 +59,7 @@ def build_translator(args) -> Translator:
     --ckpt, its step_N) and the config found near it."""
     weights = args.weights
     if args.ckpt is not None:
-        step = args.ckpt_step
-        if step is None:
-            step = latest_step(args.ckpt)
-            if step is None:
-                raise FileNotFoundError(
-                    f"no step_N checkpoint under {args.ckpt}")
-        weights = os.path.join(args.ckpt, f"step_{step}")
+        weights = step_dir(args.ckpt, args.ckpt_step)
     cfg = load_config_for_ckpt(weights, args.preset)
     return Translator(cfg, weights, device=args.device,
                       warm_batch_sizes=args.warm_batch_sizes)

@@ -290,6 +290,16 @@ def latest_step(path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def step_dir(path: str, step: Optional[int] = None) -> str:
+    """``<path>/step_<step>`` (default: the latest step); raises where
+    ``path`` holds no ``step_N`` checkpoint."""
+    if step is None:
+        step = latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"no step_N checkpoint under {path}")
+    return os.path.join(path, f"step_{int(step)}")
+
+
 def save_checkpoint(path: str, state, step: int) -> str:
     """Write ``state`` (a ``GANTrainState``) to ``<path>/step_<step>/``,
     replacing one that is there; returns the directory.  The files are
@@ -319,11 +329,7 @@ def restore_checkpoint(path: str, state, step: Optional[int] = None):
     place and return it.  The nets load with ``strict=True``; the encoder's
     optimizer must hold the same parameters as when it was saved (the frozen
     trunk stays frozen: loading sets no ``requires_grad``)."""
-    if step is None:
-        step = latest_step(path)
-        if step is None:
-            raise FileNotFoundError(f"no step_N checkpoint under {path}")
-    ckpt = os.path.join(path, f"step_{int(step)}")
+    ckpt = step_dir(path, step)
     for attr, name in NET_FILES:
         getattr(state, attr).load_state_dict(
             load_state_dict_file(os.path.join(ckpt, name)))

@@ -18,6 +18,8 @@ g/d/e_nch 8, one residual block, batch 8, k 1).
     which the JAX ``Translator`` applies (``srgan_tpu/serving.py:49-56``).
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import types
 

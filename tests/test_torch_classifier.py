@@ -14,6 +14,8 @@ Both sides start from the JAX init, carried over by
     noise floor may step the other way on the two sides.
 """
 
+import torch_one_thread  # first: one intra-op thread
+
 import json
 import os
 import subprocess
@@ -228,7 +230,7 @@ def test_cli_pretrains_on_the_cpu(tmp_path):
          "--epochs", "2", "--image-size", "64", "--e-nch", "8",
          "--e-num-cls", "2", "--device", "cpu", "--decode", "pil",
          "--out", str(out)],
-        cwd=ROOT, env=dict(os.environ, TMPDIR=str(tmp_path)),
+        cwd=ROOT, env=torch_one_thread.env(TMPDIR=str(tmp_path)),
         capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
     m = json.load(open(out / "test_metrics.json"))

@@ -9,6 +9,8 @@ PIL transform, which keeps ``tests/test_native.py``'s 0.04 (PIL's 8-bit
 fixed-point filter against the decoder's float filter).
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import filecmp
 import json
 import os

@@ -6,6 +6,8 @@ strict=True.  fp32 on the CPU; tolerance 1e-4 absolute for sums in another
 order over four conv layers.  The converter must agree with the JAX
 package's own torch export."""
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

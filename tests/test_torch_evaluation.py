@@ -1,6 +1,7 @@
 """The port's PRDC evaluation (``srgan_tpu_torch/evaluation``,
-``training/vgg_finetune.py``, ``finetune_vgg.py``, ``evaluate_prdc.py``)
-against ``srgan_tpu`` on the CPU: VGG19-BN at 224 px, batch 2.
+``training/vgg_finetune.py``, ``finetune_vgg.py``) against ``srgan_tpu``
+on the CPU: VGG19-BN at 224 px, batch 2.  The two CLIs' end-to-end runs
+are in ``tests/test_torch_evaluation_cli.py``.
 
 Both sides hold the same weights: a JAX init, its batch-norm statistics
 and affine perturbed from a numpy seed (so that a miswired running
@@ -22,10 +23,9 @@ statistic cannot hide behind mean 0 and variance 1), carried over by
     from ties.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import os
-import pickle
-import subprocess
-import sys
 
 import flax.linen as fnn
 import jax
@@ -47,14 +47,6 @@ from srgan_tpu.evaluation.harness import comparison_table as jcomparison_table
 from srgan_tpu.evaluation.prdc import compute_prdc_numpy as jprdc_numpy
 from srgan_tpu.training.vgg_finetune import VGGFinetuneTrainer as JFinetune
 from srgan_tpu.utils.checkpoint import export_torch_vgg
-from srgan_tpu_torch.configs import (
-    ExperimentConfig,
-    LossWeights,
-    ModelConfig,
-    TrainConfig,
-)
-from srgan_tpu_torch.data import make_synthetic_celeba
-from srgan_tpu_torch.evaluate_prdc import main as evaluate_prdc
 from srgan_tpu_torch.evaluation import GANEvaluation, compute_prdc
 from srgan_tpu_torch.evaluation import evaluation_init
 from srgan_tpu_torch.evaluation.features import (
@@ -71,7 +63,6 @@ from srgan_tpu_torch.evaluation.prdc import (
     pairwise_distances,
 )
 from srgan_tpu_torch.finetune_vgg import imagenet_start
-from srgan_tpu_torch.training import loop
 from srgan_tpu_torch.training.vgg_finetune import VGGFinetuneTrainer
 from srgan_tpu_torch.utils.checkpoint import vgg_state_dict_from_jax
 from vendor_prdc import compute_prdc as vendor_prdc
@@ -346,76 +337,3 @@ def test_imagenet_start_replaces_the_head(tmp_path):
             assert torch.equal(sd[k], v), k
     state = VGGFinetuneTrainer(device="cpu").init_state(state_dict=sd)
     assert state.model.num_classes == 4
-
-
-@pytest.fixture(scope="module")
-def finetuned(tmp_path_factory):
-    """The finetune_vgg CLI with the flags of
-    tests/test_cli.py::test_finetune_vgg_cli but --train-num 2: 2 of the
-    fixture's 24 images a class train, one epoch of 2 steps of 4."""
-    tmp = tmp_path_factory.mktemp("vgg")
-    r = subprocess.run(
-        [sys.executable, "-m", "srgan_tpu_torch.finetune_vgg", "--synthetic",
-         "--train-num", "2", "--val-num", "2",
-         "--batch-size", "4", "--epochs", "1", "--val-every", "1",
-         "--device", "cpu", "--decode", "pil", "--out", str(tmp / "vgg")],
-        cwd=ROOT, env=dict(os.environ, TMPDIR=str(tmp)),
-        capture_output=True, text=True, timeout=600)
-    assert r.returncode == 0, r.stderr[-3000:]
-    return tmp / "vgg"
-
-
-def test_finetune_vgg_cli(finetuned):
-    assert [float(line.split('"epoch": ')[1].split(",")[0])
-            for line in open(finetuned / "metrics.jsonl")] == [0]
-    sd = torch.load(finetuned / "vgg_celeba_best.pth", weights_only=True)
-    assert load_vgg(sd).num_classes == 4
-    assert int(sd["features.1.num_batches_tracked"]) == 2
-
-
-def test_evaluate_prdc_cli(tmp_path, finetuned):
-    """A tiny SRGAN run (tests/test_torch_loop.py's size), then the
-    evaluate_prdc CLI over all 16 pairs with two extractors, and with
-    --init-baseline."""
-    img_root, attr_file = make_synthetic_celeba(str(tmp_path / "data"),
-                                                n_per_class=10)
-    cfg = ExperimentConfig(
-        name="eval_tiny",
-        model=ModelConfig(image_size=64, g_nch=8, g_res_num=1, d_nch=8,
-                          d_num_cls=2, e_nch=8, e_num_cls=2),
-        train=TrainConfig(batch_size=8, unrolled_k=1, train_num=8,
-                          val_num=0, test_num=2),
-        loss=LossWeights.proposed_kl(cls=1.0), trainer="srgan")
-    run = tmp_path / "run"
-    loop.train_gan(cfg, str(run), data_root=img_root, attr_file=attr_file,
-                   epochs=1, sample_grids=False, echo=False, device="cpu",
-                   decode="pil")
-    common = ["--ckpt", str(run / "ckpt"), "--data-root", img_root,
-              "--attr-file", attr_file, "--num-samples", "4",
-              "--nearest-k", "3", "--test-num", "4", "--device", "cpu"]
-    pkl = tmp_path / "prdc.pkl"
-    evaluate_prdc(common + [
-        "--feature-extractors", "vgg-initialization", "vgg-CelebA",
-        "--vgg-celeba-ckpt", str(finetuned / "vgg_celeba_best.pth"),
-        "--out", str(pkl)])
-    with open(pkl, "rb") as f:
-        results = pickle.load(f)
-    assert set(results) == {"vgg-initialization", "vgg-CelebA"}
-    for fe in results:
-        assert set(results[fe]) == {0, 1, 2, 3}
-        for s in range(4):
-            for t in range(4):
-                m = results[fe][s][t]
-                assert all(len(v) == 1 and np.isfinite(v[0])
-                           for v in m.values())
-                for key in ("precision", "recall", "coverage"):
-                    assert 0.0 <= m[key][0] <= 1.0
-                assert m["density"][0] >= 0.0
-    ipkl = tmp_path / "prdc_init.pkl"
-    evaluate_prdc(common + ["--init-baseline", "--out", str(ipkl)])
-    with open(ipkl, "rb") as f:
-        iv = pickle.load(f)["vgg-initialization"][0][1]["coverage"]
-    assert len(iv) == 1 and np.isfinite(iv[0])
-    with pytest.raises(SystemExit):
-        evaluate_prdc(common + ["--feature-extractors", "vgg-ImageNet",
-                                "--out", str(ipkl)])

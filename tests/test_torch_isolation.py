@@ -2,6 +2,8 @@
 or matplotlib when a module is imported), ships no binary, and never
 carries on on the CPU when CUDA is asked for."""
 
+import torch_one_thread  # first: one intra-op thread
+
 import os
 import subprocess
 import sys
@@ -24,7 +26,7 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "srgan_tpu", "triton", "PIL",
-                                    "matplotlib"))
+                                    "matplotlib", "pandas"))
 ported = sorted(m for m in sys.modules if m.startswith("srgan_tpu_torch"))
 print("IMPORTED", len(ported))
 print("MODULES", " ".join(ported))
@@ -55,7 +57,27 @@ FEED = ("srgan_tpu_torch.data", "srgan_tpu_torch.data.attributes",
         # data parallel over torch.distributed, and the batch-norm mode's
         # layers
         "srgan_tpu_torch.parallel", "srgan_tpu_torch.parallel.mesh",
-        "srgan_tpu_torch.parallel.collectives", "srgan_tpu_torch.nn.layers")
+        "srgan_tpu_torch.parallel.collectives", "srgan_tpu_torch.nn.layers",
+        # the script twins
+        "srgan_tpu_torch.make_fixture", "srgan_tpu_torch.build_label_folder",
+        "srgan_tpu_torch.translation_oracle",
+        "srgan_tpu_torch.compare_results", "srgan_tpu_torch.bench_loader",
+        "srgan_tpu_torch.data_scale_dryrun", "srgan_tpu_torch.bench_serving")
+TWINS = FEED[-7:]
+
+_HELP = r"""
+import importlib, sys
+sys.path.insert(0, ROOT)
+mod = importlib.import_module(NAME)
+try:
+    mod.main(["--help"])
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "srgan_tpu",
+                                    "pandas"))
+print("BAD", bad)
+"""
 
 
 def test_port_and_chip_smoke_import_no_jax_or_srgan_tpu():
@@ -66,9 +88,22 @@ def test_port_and_chip_smoke_import_no_jax_or_srgan_tpu():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 40, r.stdout
+    assert n >= 47, r.stdout
     modules = r.stdout.split("MODULES")[1].split("\n")[0].split()
     assert set(FEED) <= set(modules), sorted(set(FEED) - set(modules))
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_script_twin_help_imports_no_jax_or_pandas(name):
+    """Each twin imported and its --help run, in a fresh interpreter: no
+    JAX, srgan_tpu or pandas comes in."""
+    r = subprocess.run(
+        [sys.executable, "-I", "-c",
+         f"ROOT = {ROOT!r}\nNAME = {name!r}\n" + _HELP],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env=torch_one_thread.env())
+    assert r.returncode == 0, r.stderr
+    assert "usage:" in r.stdout and "BAD []" in r.stdout, r.stdout
 
 
 def test_port_files_are_small_text():
@@ -149,7 +184,8 @@ def test_norm_output_carries_the_gradient():
 
 
 @pytest.mark.parametrize("cli", ["pretrain_classifier", "finetune_vgg",
-                                 "evaluate_prdc", "sample_sweep"])
+                                 "evaluate_prdc", "sample_sweep",
+                                 "translation_oracle", "bench_serving"])
 def test_new_clis_refuse_cuda_without_it(tmp_path, cli):
     """Each CLI defaults to the card and, without CUDA, stops before it
     reads any data instead of carrying on on the CPU."""
@@ -157,13 +193,16 @@ def test_new_clis_refuse_cuda_without_it(tmp_path, cli):
         pytest.skip("this machine has CUDA")
     args = [sys.executable, "-m", f"srgan_tpu_torch.{cli}", "--out",
             str(tmp_path / "out")]
-    if cli in ("evaluate_prdc", "sample_sweep"):
+    if cli in ("evaluate_prdc", "sample_sweep", "translation_oracle"):
         args += ["--ckpt", str(tmp_path / "ckpt"), "--preset",
                  "05_srgan_full"]
-    else:
+    if cli == "translation_oracle":
+        args += ["--data-root", str(tmp_path), "--attr-file",
+                 str(tmp_path / "list_attr_celeba.txt")]
+    elif cli in ("pretrain_classifier", "finetune_vgg"):
         args += ["--synthetic"]
-    r = subprocess.run(args, cwd=ROOT, env=dict(os.environ,
-                                                 TMPDIR=str(tmp_path)),
+    r = subprocess.run(args, cwd=ROOT, env=torch_one_thread.env(
+                           TMPDIR=str(tmp_path)),
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert "CUDA is not available" in r.stderr, r.stderr[-3000:]

@@ -3,6 +3,8 @@ of srgan_tpu/nn/layers.py, with the JAX parameters carried over by the
 port's converters and NHWC <-> NCHW transposes.  fp32 on the CPU; tolerance
 1e-5 absolute."""
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

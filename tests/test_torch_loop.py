@@ -1,21 +1,21 @@
-"""The port's epoch loop, checkpoints and CLI (``srgan_tpu_torch/training/
-loop.py``, ``utils/checkpoint.py``, ``train.py``) on the CPU, at the size of
-``tests/test_loop.py`` (64 px, g/d/e_nch 8, g_res_num 1, d/e_num_cls 2,
-batch 8, 10 synthetic images a class), mirroring its tests, and the port's
-``train_gan`` against the JAX ``train_gan`` over one epoch.
+"""The port's epoch loop and CLI (``srgan_tpu_torch/training/loop.py``,
+``train.py``) on the CPU, at the size of ``tests/test_loop.py``
+(``tests/torch_loop_common.py``: 64 px, g/d/e_nch 8, g_res_num 1, d/e_num_cls
+2, batch 8, 10 synthetic images a class), mirroring its tests, and the
+port's ``train_gan`` against the JAX ``train_gan`` over one epoch. The
+checkpoint, resume and signal cases are in ``tests/test_torch_resume.py``.
 
-Tolerances: a restored checkpoint's step is bit-equal to the unsaved
-state's (the same arithmetic on the same bits); the loop against the JAX
-loop holds every logged loss within 1e-4 relative, the tolerance of
-``tests/test_torch_train.py`` (fp32 sums in another order), with the same
-``epoch`` and ``step`` columns.
+Tolerance: the loop against the JAX loop holds every logged loss within
+1e-4 relative, the tolerance of ``tests/test_torch_train.py`` (fp32 sums in
+another order), with the same ``epoch`` and ``step`` columns.
 """
+
+import torch_one_thread  # first: one intra-op thread
 
 import dataclasses
 import importlib.util
 import json
 import os
-import signal
 import subprocess
 import sys
 
@@ -35,134 +35,27 @@ from srgan_tpu.utils.checkpoint import (
     export_torch_classifier,
     save_torch_state_dict,
 )
-from srgan_tpu_torch.configs import (
-    ExperimentConfig,
-    LossWeights,
-    ModelConfig,
-    TrainConfig,
-)
-from srgan_tpu_torch.data import make_synthetic_celeba
 from srgan_tpu_torch.training import loop
 from srgan_tpu_torch.training.gan import GANTrainer
-from srgan_tpu_torch.utils import checkpoint
-from srgan_tpu_torch.utils import metrics as metrics_mod
 from srgan_tpu_torch.utils.checkpoint import (
     encoder_state_dict_from_jax,
     generator_state_dict_from_jax,
     solo_discriminator_state_dict_from_jax,
 )
+from torch_loop_common import (  # noqa: F401
+    MODEL,
+    PER_CLASS,
+    RUN,
+    TRAIN,
+    Injected,
+    _records,
+    _train,
+    data,
+    tiny_cfg,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-4
-PER_CLASS = 10
-MODEL = dict(image_size=64, g_nch=8, g_res_num=1, d_nch=8, d_num_cls=2,
-             e_nch=8, e_num_cls=2)
-TRAIN = dict(batch_size=8, unrolled_k=1, encoded_feature="mu", train_num=8,
-             val_num=0, test_num=2)
-RUN = dict(sample_grids=False, echo=False, device="cpu")
-
-
-def tiny_cfg(pretrained=False, **train) -> ExperimentConfig:
-    return ExperimentConfig(
-        name="loop_tiny", model=ModelConfig(**MODEL),
-        train=TrainConfig(**{**TRAIN, **train}),
-        loss=LossWeights.proposed_kl(cls=1.0), trainer="srgan",
-        pretrained_encoder=pretrained)
-
-
-@pytest.fixture(scope="module")
-def data(tmp_path_factory):
-    return make_synthetic_celeba(str(tmp_path_factory.mktemp("celeba")),
-                                 n_per_class=PER_CLASS)
-
-
-def _train(cfg, out, data, **kw):
-    img_root, attr_file = data
-    return loop.train_gan(cfg, str(out), data_root=img_root,
-                          attr_file=attr_file, **{**RUN, **kw})
-
-
-def _records(out):
-    with open(os.path.join(out, "metrics.jsonl")) as f:
-        return [json.loads(line) for line in f]
-
-
-# ---------------------------------------------------------------- checkpoint
-
-class Injected(GANTrainer):
-    """Hands out the same latents at every step."""
-
-    draws = None
-
-    def _draw_latent(self, shape):
-        arr = self.draws[self.draw_i % len(self.draws)]
-        self.draw_i += 1
-        return torch.from_numpy(arr)
-
-
-def _batch(rng, cfg):
-    B, hw = cfg.train.batch_size, cfg.model.image_size
-    src = rng.integers(0, 4, B)
-    return dict(image=rng.uniform(-1, 1, (B, hw, hw, 3)).astype(np.float32),
-                source_label=src,
-                target_label=(src + rng.integers(1, 4, B)) % 4)
-
-
-def test_save_restore_step_is_bit_equal(tmp_path):
-    cfg = tiny_cfg(pretrained=True, unrolled_k=2)
-    rng = np.random.default_rng(3)
-    Injected.draws = [rng.standard_normal((8, 8)).astype(np.float32)
-                      for _ in range(2)]
-    batches = [_batch(rng, cfg) for _ in range(2)]
-    t = Injected(cfg, device="cpu")
-    t.draw_i = 0
-    state = t.init_state(freeze_pretrained=True)
-    t.step(state, batches[0])
-    ckpt = checkpoint.save_checkpoint(str(tmp_path / "ckpt"), state, step=1)
-    assert ckpt.endswith("step_1")
-    assert sorted(os.listdir(ckpt)) == [
-        "discriminator.pth", "encoder.pth", "generator.pth",
-        "train_state.pth"]
-    assert checkpoint.latest_step(str(tmp_path / "ckpt")) == 1
-    assert checkpoint.latest_step(str(tmp_path / "none")) is None
-
-    # a state from other weights, restored from the checkpoint
-    other = t.init_state(torch.Generator().manual_seed(99),
-                         freeze_pretrained=True)
-    checkpoint.restore_checkpoint(str(tmp_path / "ckpt"), other)
-    assert other.step == state.step == 1
-    assert torch.equal(other.hist_target, state.hist_target)
-    trunk = [n for n, p in other.E.named_parameters()
-             if n.split(".")[0] not in ("fcmean", "fcvar")]
-    assert trunk and all(not p.requires_grad for n, p in
-                         other.E.named_parameters() if n in trunk)
-    trunk_before = {n: p.clone() for n, p in other.E.named_parameters()
-                    if n in trunk}
-
-    m_a = t.step(state, batches[1], epoch=1)
-    m_b = t.step(other, batches[1], epoch=1)
-    assert set(m_a) == set(m_b)
-    for k in m_a:
-        assert torch.equal(m_a[k], m_b[k]), k
-    for net in ("G", "D", "E"):
-        a, b = getattr(state, net).state_dict(), \
-            getattr(other, net).state_dict()
-        for k in a:
-            assert torch.equal(a[k], b[k]), (net, k)
-    for opt in ("opt_g", "opt_d", "opt_e"):
-        sa = getattr(state, opt).state_dict()["state"]
-        sb = getattr(other, opt).state_dict()["state"]
-        for i in sa:
-            for k in sa[i]:
-                assert torch.equal(sa[i][k], sb[i][k]), (opt, i, k)
-    for n, p in other.E.named_parameters():
-        if n in trunk:
-            assert torch.equal(p, trunk_before[n]), n
-    # a checkpoint of an unfrozen encoder does not load into a frozen one
-    loose = t.init_state()
-    checkpoint.save_checkpoint(str(tmp_path / "loose"), loose, step=1)
-    with pytest.raises(ValueError):
-        checkpoint.restore_checkpoint(str(tmp_path / "loose"), other)
 
 
 # ---------------------------------------------------------------- the loop
@@ -178,33 +71,6 @@ def test_train_gan_end_to_end(tmp_path, data):
     assert not os.path.isdir(tmp_path / "run" / "ckpt" / "step_0")
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
     assert state.step == 4 and trainer.device.type == "cpu"
-
-
-def test_train_gan_resume_keeps_steps_monotonic(tmp_path, data):
-    cfg = tiny_cfg()
-    out = tmp_path / "run"
-    _train(cfg, out, data, epochs=1)
-    trainer, state = _train(cfg, out, data, epochs=2, resume=True)
-    assert state.step == 8
-    assert [r["step"] for r in _records(out)] == list(range(1, 9))
-    assert [r["epoch"] for r in _records(out)] == [0] * 4 + [1] * 4
-    assert checkpoint.latest_step(str(out / "ckpt")) == 2
-
-
-def test_resume_with_different_config_refuses(tmp_path, data):
-    cfg = tiny_cfg()
-    out = tmp_path / "run"
-    _train(cfg, out, data, epochs=1)
-    other = dataclasses.replace(cfg, name="loop_other")
-    with pytest.raises(ValueError, match="resume with a different config"):
-        _train(other, out, data, epochs=2, resume=True)
-    # a longer run is not another config
-    longer = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, epochs=cfg.train.epochs + 5))
-    _, state = _train(longer, out, data, epochs=2, resume=True)
-    assert state.step == 8
-    with open(out / "config.json") as f:
-        assert json.load(f)["train"]["epochs"] == cfg.train.epochs
 
 
 def test_train_gan_refusals(tmp_path, data, monkeypatch):
@@ -234,29 +100,6 @@ def test_debug_nans_raises_at_the_first_non_finite_metric(tmp_path, data,
     monkeypatch.setattr(GANTrainer, "step", nan_step)
     with pytest.raises(FloatingPointError, match="errD"):
         _train(tiny_cfg(), tmp_path / "run", data, epochs=1, debug_nans=True)
-
-
-def test_sigterm_checkpoints_and_stops(tmp_path, data, monkeypatch):
-    cfg = tiny_cfg()
-    out = tmp_path / "run"
-    orig_log = metrics_mod.MetricLogger.log
-    fired = []
-
-    def log_and_kill(self, *a, **k):
-        if not fired:
-            fired.append(1)
-            os.kill(os.getpid(), signal.SIGTERM)
-        return orig_log(self, *a, **k)
-
-    monkeypatch.setattr(metrics_mod.MetricLogger, "log", log_and_kill)
-    handler = signal.getsignal(signal.SIGTERM)
-    _, state = _train(cfg, out, data, epochs=50)
-    assert signal.getsignal(signal.SIGTERM) is handler
-    assert state.step == 4
-    assert os.listdir(out / "ckpt") == ["step_1"]
-    _, state2 = _train(cfg, out, data, epochs=2, resume=True)
-    assert state2.step == 8
-    assert [r["step"] for r in _records(out)] == list(range(1, 9))
 
 
 def test_nb05_encoder_load_is_the_classifier(tmp_path, data):
@@ -373,7 +216,7 @@ def _cli(tmp_path, *extra, preset="03_srgan_nopretraining",
             "--e-num-cls", "2", "--batch-size", "8", *k,
             "--train-num", "8", "--synthetic-per-class", str(PER_CLASS),
             "--epochs", "1", *extra]
-    env = dict(os.environ, TMPDIR=str(tmp_path))
+    env = torch_one_thread.env(TMPDIR=str(tmp_path))
     return subprocess.run(args, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=300)
 

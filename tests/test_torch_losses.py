@@ -5,6 +5,8 @@ interpret mode.  Inputs from numpy with a seed.  fp32; tolerance 1e-5
 relative (plus 1e-6 absolute for entries near 0): sums in another order
 over at most a few hundred terms."""
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import types
 

@@ -5,6 +5,8 @@ the CPU; tolerance 1e-4 absolute, for sums in another order over 10+
 layers.  The converters must agree with the JAX package's own torch
 export."""
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,8 @@ CPU against the JAX package: the Pallas kernel run in interpret mode, the
 jnp CBINorm branch and the jnp instance norm.  fp32; tolerance 1e-5 absolute
 (sums taken in another order over at most 64 elements)."""
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

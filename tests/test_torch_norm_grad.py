@@ -8,6 +8,8 @@ elements; the constant plane's rstd of about 316 scales its dx).  Also the
 backward kernel's plan (``bwd_plan``) for every norm shape of every
 preset."""
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import contextlib
 
 import jax

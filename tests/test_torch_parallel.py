@@ -28,6 +28,8 @@ collide under xdist), one thread each, every spawn with its own timeout.
     CPU against the same run on one process.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 import os

@@ -5,6 +5,8 @@ trainer's encoder and the SingleGAN trainers' conditional one.  fp32 on
 the CPU; tolerance 1e-4 absolute, as for the models.  ``serve`` finds the
 config of a training run from its checkpoint directory."""
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 

@@ -14,6 +14,8 @@ e_num_cls 2, batch 4):
     E parameters by the criterion of ``tests/test_torch_train.py``.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 
 import jax

@@ -12,6 +12,8 @@ figures have the JAX figures' axes, titles and scales; the GIFs decode to
 the same frames; the loop writes the JAX loop's PNG names.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
+
 import json
 import os
 
