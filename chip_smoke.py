@@ -131,27 +131,44 @@ from the root of a checkout; no install step, no argument.  Phases:
      44,000 images, pool 256, batch 128, 24 batches), and
      ``bench_serving`` on 03_srgan_nopretraining at full width in fp32
      (TF32 off) and bf16: p50 and p95 at batch 1, 8, 32 and 128, the
-     device-only ms a forward at 128, the norm launches as derived.
+     device-only ms a forward at 128, the norm launches as derived;
+ 19. the throughput bench, ``python -m srgan_tpu_torch.bench --all`` in
+     process (10 warm-up steps, 3 trials of 10; the flagship 05_srgan_full
+     in bf16 at batch 128 with its encoder trunk trained, the per-domain
+     SingleGAN k 5 arm, the flagship at batch 256) while this process
+     holds a chip-lock marker in the run's lock dir: its last line has
+     the JAX bench's keys with that pid in contended_with_pids, value > 0,
+     mfu in (0, 1.05], the FLOP count a step within 1 % of the same count
+     on the CPU at batch 2 scaled to 128, the step within 15 % of phase
+     8c's bf16 host ms, vs_baseline as srgan_tpu_torch/bench_self.json
+     gives it, every kernel's launches as derived for the steps run; then
+     ``BENCH_PROBE_ONLY=1`` in a subprocess.  Phases 8 and 14 take their
+     GFLOP an image from the same count (``bench.count_step_flops``).
 
-Each entry point of phases 11-13 and 18 that touches the card runs with
+Each entry point of phases 11-13, 18 and 19 that touches the card runs with
 TF32 turned on before it and must turn it off itself (``resolve_device``),
-as it does for its users.
+as it does for its users.  The run points ``SRGAN_TPU_LOCK_DIR`` at a
+temporary directory of its own, so the chip-lock markers of its phases meet
+no bench of another checkout.
 
 Without CUDA it raises before printing a result.  It starts no server; its
 subprocesses are nvidia-smi, nvcc and g++ (the host probes and the native
-decoder's build), each with a timeout, its threads are the loader's
+decoder's build) and phase 19's Python probes of the card, each with a
+timeout, its threads are the loader's
 workers, joined at the end of each epoch, and phase 17's two ranks, joined
 (or killed at a timeout) before it goes on.  Before the last line it prints
 the `kernels`, `training`, `serving`, `loop`, `classifier`, `vgg`,
 `evaluation`, `variants`, `visualisation`, `batch_norm`,
-`data_parallel` and `scripts` JSON lines; the last line is {"ok": true,
-"device": {...}}.
+`data_parallel`, `scripts` and `bench` JSON lines; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
+import io
 import itertools
 import json
 import math
@@ -169,6 +186,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from srgan_tpu_torch import bench  # noqa: E402
 from srgan_tpu_torch.configs import PRESETS, config_from_dict  # noqa: E402
 from srgan_tpu_torch.ops import (  # noqa: E402
     build,
@@ -285,13 +303,6 @@ def check(ok: bool, what):
 
 def say(*parts):
     print(*parts, flush=True)
-
-
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int = 20, warm: int = 3):
@@ -1061,7 +1072,7 @@ def check_gradient_repair(cfg, g_per, e_per):
     return worst
 
 
-def expected_counts(cfg, g_per, e_per, fused=False):
+def expected_counts(cfg, g_per, e_per, fused=False, frozen=True):
     """Launches of each kernel in one train step of ``cfg``, from the
     step's code (srgan_tpu_torch/training/gan.py::GANTrainer.step), with
     idt > 0 as in every preset; ``e_per`` is the norms of one forward of
@@ -1076,8 +1087,9 @@ def expected_counts(cfg, g_per, e_per, fused=False):
     backward norms: G's k-th fake (its graph feeds D(fake) and the phase-1
     pair: one backward), the phase-1 pair and phase 2's call = 3 G
     backwards; E: phase 2's call, back to its input, and phase 1's
-    forward unless the trunk is frozen (05_srgan_full: neither its input
-    nor its parameters need a gradient).
+    forward unless the pretrained trunk is frozen (05_srgan_full with
+    ``frozen``, as ``fresh`` and ``train_gan`` freeze it: neither its input
+    nor its parameters need a gradient; the bench trains it).
     soft histogram (the proposed stack): once forward, once backward
     (phase 1's errE), unless the fused kernel takes the stack; fused
     kernel: 0, or 1 when fused.  The discriminators run no norm.
@@ -1085,7 +1097,7 @@ def expected_counts(cfg, g_per, e_per, fused=False):
     k, lw = cfg.train.unrolled_k, cfg.loss
     srgan_idt = lw.idt_reg * lw.idt > 0 and not gan.conditional_encoder(cfg)
     e_fwd = 3 if srgan_idt else 2
-    e_bwd = 1 if cfg.pretrained_encoder else 2
+    e_bwd = 1 if cfg.pretrained_encoder and frozen else 2
     hist = 1 if lw.batch_KL > 0 and lw.hist > 0 and not fused else 0
     return {"cbinorm_fwd": (k + 2) * g_per + e_fwd * e_per,
             "cbinorm_bwd": 3 * g_per + e_bwd * e_per,
@@ -1232,7 +1244,7 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
         steps.append(dict(metrics=metrics, device_ms=dev_ms,
                           host_ms=host_ms))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    gflop = step_gflop_per_image(cfg, trainer, state)
+    gflop = bench.count_step_flops(trainer, state, batches[-1]) / B / 1e9
     say("== phase 8a: one more fp32 step under torch.profiler")
     prof_fp32 = profile_step(lambda: trainer.step(state, batches[-1]))
     say_profile("one fp32 step", prof_fp32)
@@ -1286,16 +1298,20 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
     torch.cuda.empty_cache()
 
     timed = steps[1:]
+    mean_ms = sum(s["device_ms"] for s in timed) / len(timed)
+    say(f"{gflop:.2f} GFLOP an image a step (bench.count_step_flops): "
+        f"fp32 {gflop * B / mean_ms:.2f} TFLOP/s, bf16 "
+        f"{gflop * B / bf16[1]['device_ms']:.2f} TFLOP/s on the device")
     record = dict(
         preset=PRESET, batch=B, unrolled_k=k, tf32=False,
         freeze_pretrained=True, card=name, power_limit=power_limit,
         init_s=init_s, warm_step_device_ms=steps[0]["device_ms"],
         step_device_ms=[s["device_ms"] for s in timed],
         step_host_ms=[s["host_ms"] for s in timed],
-        step_device_ms_mean=sum(s["device_ms"] for s in timed) / len(timed),
-        img_s=1e3 * B * len(timed) / sum(s["device_ms"] for s in timed),
+        step_device_ms_mean=mean_ms, img_s=1e3 * B / mean_ms,
         peak_mem_gib=peak, metrics_last_step=timed[-1]["metrics"],
         launches_per_step=want, step_gflop_per_image=gflop,
+        step_tflop_s=gflop * B / mean_ms,
         profile=prof_fp32,
         fused_step=dict(device_ms=f_ms, launches=f_counts,
                         worst_rel_diff_to_unfused=worst),
@@ -1303,6 +1319,7 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
                   step_device_ms=bf16[1]["device_ms"],
                   step_host_ms=bf16[1]["host_ms"],
                   img_s=1e3 * B / bf16[1]["device_ms"], peak_mem_gib=bf16_peak,
+                  step_tflop_s=gflop * B / bf16[1]["device_ms"],
                   metrics=bf16[1]["metrics"], profile=prof_bf16))
     return record, want, f_counts
 
@@ -1777,8 +1794,9 @@ def run_cli(main, argv):
     here is what its users get."""
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
-    main(argv)
+    out = main(argv)
     check(not tf32_on(), f"{main.__module__} left TF32 on")
+    return out
 
 
 def cli_arg_list(**kw):
@@ -2237,40 +2255,6 @@ class DSnapshots:
         return dict(params_equal_snapshot=same, adam_step=adam.pop())
 
 
-def step_gflop_per_image(cfg, trainer, state):
-    """Forward GFLOP an image of one train step of ``cfg`` on ``state``'s
-    nets (2 a multiply-accumulate, ``forward_flops``), a backward through
-    the weights and the input counted as two forwards and one through the
-    input alone as one: G (k + 14) g, or (k + 11) g without phase 2's pair;
-    D (6k + 2) d, d over every domain's D; E (5, or 3 without the pair, + 2
-    if the encoder trains + 1 for the SRGAN identity regression) e.  The
-    calls are those of ``expected_counts``."""
-    m, k, lw = cfg.model, cfg.train.unrolled_k, cfg.loss
-    x = torch.zeros((1, m.nch_in, m.image_size, m.image_size), device=DEV)
-    c = torch.zeros((1, m.num_con), device=DEV)
-
-    class Call(torch.nn.Module):
-        def __init__(self, net, fn):
-            super().__init__()
-            self.net, self.fn = net, fn
-
-        def forward(self, x):
-            return self.fn(self.net, x)
-
-    g = forward_flops(Call(state.G, lambda net, x: net(x, c)), x)
-    e = forward_flops(Call(state.E, lambda net, x: trainer._E(
-        net, x, c[:, :m.n_classes])), x)
-    d = forward_flops(Call(state.D, lambda net, x: [Di(x) for Di in net]
-                           if isinstance(net, torch.nn.ModuleList)
-                           else net(x)), x)
-    pair = lw.idt_reg * lw.idt > 0
-    srgan_idt = pair and not gan.conditional_encoder(cfg)
-    g_units = k + (14 if pair else 11)
-    e_units = (5 if pair else 3) + (0 if cfg.pretrained_encoder else 2) \
-        + int(srgan_idt)
-    return (g_units * g + (6 * k + 2) * d + e_units * e) / 1e9
-
-
 def variants_phase(g_per, e_per, name, power_limit):
     """Phase 14.  Returns the `variants` record and the launches per step
     of each variant."""
@@ -2307,7 +2291,8 @@ def variants_phase(g_per, e_per, name, power_limit):
                 f"{counts}, " + json.dumps(metrics))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         timed = [st["device_ms"] for st in steps[1:]]
-        gflop = step_gflop_per_image(cfg, trainer, state)
+        gflop = bench.count_step_flops(trainer, state, batches[-1]) \
+            / cfg.train.batch_size / 1e9
         mean_ms = sum(timed) / len(timed)
         rec = dict(trainer=cfg.trainer, unrolled_k=k,
                    encoded_feature=cfg.train.encoded_feature,
@@ -2356,7 +2341,7 @@ def variants_phase(g_per, e_per, name, power_limit):
         say(f"{key}: {rec['step_device_ms_mean']:.1f} ms a step, "
             f"{rec['img_s']:.1f} img/s, peak {rec['peak_mem_gib']:.2f} GiB, "
             f"{rec['step_gflop_per_image']:.1f} GFLOP an image a step "
-            f"(step_gflop_per_image), {rec['step_tflop_s']:.1f} TFLOP/s")
+            f"(bench.count_step_flops), {rec['step_tflop_s']:.1f} TFLOP/s")
     return dict(batch=cfg.train.batch_size, dtype="float32", tf32=False,
                 card=name, power_limit=power_limit, presets=record), launches
 
@@ -3017,15 +3002,161 @@ def scripts_phase(g_per, e_per, loop_out, work, name, power_limit):
     return record, oracle_counts["cbinorm_fwd"], serving_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the throughput bench
+# ---------------------------------------------------------------------------
+
+BENCH_ENV = dict(BENCH_WARMUP="10", BENCH_ITERS="10", BENCH_BUSY_WAIT="1")
+# the bench's FLOP count on the card against the same count on the CPU at
+# batch 2, scaled to the flagship's batch: the count reads shapes only (it
+# is the same in fp32 and bf16, tests/test_torch_bench.py), so the two
+# differ only by operations whose count is not linear in the batch
+BENCH_CPU_BATCH = 2
+BENCH_FLOP_TOL = 0.01
+# the bench's step (encoder trunk trained) against phase 8c's bf16 step
+# (trunk frozen) on the host clock
+BENCH_STEP_TOL = 0.15
+
+
+def bench_phase(g_per, e_per, bf16_host_ms, work, name, power_limit):
+    """Phase 19, in ``work``: ``python -m srgan_tpu_torch.bench --all`` in
+    this process, with a live chip-lock marker of this process in the
+    run's lock dir.  Returns the `bench` record and the launches of
+    the bench's steps."""
+    from srgan_tpu_torch.utils.chiplock import hold_chip
+
+    say("== phase 19: python -m srgan_tpu_torch.bench --all in process "
+        f"({', '.join(f'{k}={v}' for k, v in BENCH_ENV.items())}), this "
+        "process holding a chip-lock marker; the FLOP count against the "
+        f"CPU's at batch {BENCH_CPU_BATCH}; BENCH_PROBE_ONLY=1 in a "
+        "subprocess")
+    t_phase = time.perf_counter()
+    flag = bench.flagship_cfg()
+    B = flag.train.batch_size
+    t0 = time.perf_counter()
+    ccfg = dataclasses.replace(flag, train=dataclasses.replace(
+        flag.train, batch_size=BENCH_CPU_BATCH, compute_dtype="float32"))
+    ct = gan.GANTrainer(ccfg, "cpu")
+    cstate = ct.init_state(torch.Generator().manual_seed(0))
+    cpu_flops = bench.count_step_flops(ct, cstate, bench.bench_batch(
+        ccfg, "cpu")) * B / BENCH_CPU_BATCH
+    del ct, cstate
+    cpu_count_s = time.perf_counter() - t0
+
+    had_baseline = os.path.exists(bench.SELF_PATH)
+    arms_out = os.path.join(work, "bench_arms.json")
+    saved = {k: os.environ.get(k) for k in BENCH_ENV}
+    os.environ.update(BENCH_ENV)
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with hold_chip("chip_smoke phase 19"), \
+                contextlib.redirect_stdout(out):
+            returned = run_cli(bench.main, ["--all", "--arms-out", arms_out])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    bench_s = time.perf_counter() - t0
+    counts = read_counts()
+    say(out.getvalue().rstrip())
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    with open(arms_out) as f:
+        arms = json.load(f)
+    say(f"arms: {json.dumps(arms)}")
+
+    check(line == returned, f"stdout {line}, returned {returned}")
+    check(set(line) - {"unstable_timing"} == {
+        "metric", "value", "unit", "vs_baseline", "mfu", "step_ms",
+        "contended_with_pids"}, f"keys of the bench's line: {sorted(line)}")
+    check(line["contended_with_pids"] == [os.getpid()],
+          f"contended_with_pids {line['contended_with_pids']}, want this "
+          f"process {os.getpid()}")
+    check(line["value"] > 0 and line["mfu"] is not None
+          and 0 < line["mfu"] <= 1.05, f"value {line['value']}, mfu "
+          f"{line['mfu']}")
+    labels = [r["label"] for r in arms["results"]]
+    check(labels == ["srgan_full_b128", *bench.arm_cfgs()],
+          f"arms {labels}")
+    flops = arms["results"][0]["flops_per_step"]
+    flop_gap = flops / cpu_flops - 1
+    step_gap = line["step_ms"] / bf16_host_ms - 1
+    say(f"FLOPs a step {flops:.6e} on the card, {cpu_flops:.6e} on the CPU "
+        f"(batch {BENCH_CPU_BATCH} x {B // BENCH_CPU_BATCH}): gap "
+        f"{100 * flop_gap:+.4f} % (tol {100 * BENCH_FLOP_TOL:g} %); step "
+        f"{line['step_ms']} ms against phase 8c's bf16 host "
+        f"{bf16_host_ms:.2f} ms: gap {100 * step_gap:+.2f} % (tol "
+        f"{100 * BENCH_STEP_TOL:g} %)")
+    check(abs(flop_gap) <= BENCH_FLOP_TOL, "the card's FLOP count is not "
+          "the CPU's")
+    check(abs(step_gap) <= BENCH_STEP_TOL, "the bench's step is not phase "
+          "8c's")
+    with open(bench.SELF_PATH) as f:
+        base = json.load(f)
+    if not had_baseline:
+        check(line["vs_baseline"] == 1.0
+              and base["card"] == torch.cuda.get_device_name(0)
+              and base["images_per_sec"] == line["value"],
+              f"the baseline written: {base}, line {line}")
+    elif base["card"] == torch.cuda.get_device_name(0):
+        check(line["vs_baseline"] == round(
+            line["value"] / base["images_per_sec"], 3),
+            f"vs_baseline {line['vs_baseline']} against {base}")
+    else:
+        check(line["vs_baseline"] is None, f"vs_baseline "
+              f"{line['vs_baseline']} against another card's {base}")
+
+    steps = 1 + int(BENCH_ENV["BENCH_WARMUP"]) \
+        + 3 * int(BENCH_ENV["BENCH_ITERS"])
+    want = dict.fromkeys(KERNELS, 0)
+    for cfg in (flag, *bench.arm_cfgs().values()):
+        per = expected_counts(cfg, g_per, e_per, frozen=False)
+        for kn in want:
+            want[kn] += steps * per[kn]
+    say(f"launches in the bench: {counts}, derived {want} ({steps} steps "
+        "an arm, encoder trunk trained)")
+    check(counts == want, f"launches {counts}, derived {want}")
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "srgan_tpu_torch.bench"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "BENCH_PROBE_ONLY": "1"})
+    probe_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"BENCH_PROBE_ONLY exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    probe = json.loads(r.stdout.strip().splitlines()[-1])
+    check(probe == {"probe": "ok"}, f"BENCH_PROBE_ONLY printed {probe}")
+    say(f"BENCH_PROBE_ONLY=1: {probe} in {probe_s:.1f} s")
+    return dict(card=name, power_limit=power_limit, env=BENCH_ENV,
+                line=line, arms=arms["results"], steps_an_arm=steps,
+                cpu_flops_per_step=cpu_flops, flop_gap_vs_cpu=flop_gap,
+                step_gap_vs_phase8c_bf16_host=step_gap,
+                phase8c_bf16_host_ms=bf16_host_ms, launches=counts,
+                had_baseline=had_baseline, baseline=base,
+                cpu_count_s=cpu_count_s, bench_s=bench_s, probe_s=probe_s,
+                phase_s=time.perf_counter() - t_phase), counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
+    # every chip-lock marker of the run (train_gan's in phases 10 and 15,
+    # the data-parallel ranks', phase 19's) goes to a directory of its own,
+    # which no other checkout's bench reads
+    with tempfile.TemporaryDirectory() as locks:
+        os.environ["SRGAN_TPU_LOCK_DIR"] = locks
+        run_phases()
 
+
+def run_phases():
     t_script = time.perf_counter()
     say("== phase 1: device")
-    card = card_line()
-    say(card)
-    name, power_limit = [s.strip() for s in card.split(",", 1)]
+    name, power_limit = bench.card_info()
+    check(name is not None, "nvidia-smi did not report the card")
+    say(f"{name}, {power_limit}")
     gan.resolve_device(DEV)
     check(not tf32_on(), "resolve_device left TF32 on")
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3092,13 +3223,18 @@ def main():
                 scripts_phase(g_per, e_per, loop_out, work, name,
                               power_limit)
             t8 = time.perf_counter()
+            bench_record, bench_launches = bench_phase(
+                g_per, e_per, training["bf16"]["step_host_ms"], work, name,
+                power_limit)
+            t9 = time.perf_counter()
             classifier["phase_s"], vgg["phase_s"] = t1 - t0, t2 - t1
             evaluation["phase_s"] = t3 - t2
             variants["phase_s"], visualisation["phase_s"] = t4 - t3, t5 - t4
             batch_norm["phase_s"], data_parallel["phase_s"] = t6 - t5, t7 - t6
-            say(f"phases 11-18: {t1 - t0:.1f}, {t2 - t1:.1f}, "
+            say(f"phases 11-19: {t1 - t0:.1f}, {t2 - t1:.1f}, "
                 f"{t3 - t2:.1f}, {t4 - t3:.1f}, {t5 - t4:.1f}, "
-                f"{t6 - t5:.1f}, {t7 - t6:.1f}, {t8 - t7:.1f} s")
+                f"{t6 - t5:.1f}, {t7 - t6:.1f}, {t8 - t7:.1f}, "
+                f"{t9 - t8:.1f} s")
         finally:
             tempfile.tempdir = saved_tempdir
 
@@ -3134,6 +3270,9 @@ def main():
                 n > 0 for n in bench_serving_launches.values()),
                 f"{kn} was not launched by the oracle or bench_serving")
         entry["launches_loop"] = loop_launches[kn]
+        entry["launches_bench"] = bench_launches[kn]
+        check(kn == "diversification_fwd" or bench_launches[kn] > 0,
+              f"{kn} was not launched by the bench")
         entry["launches_batch_mode"] = bn_launches[kn]
         entry["launches_data_parallel_rank"] = dp_launches[kn]
         check(kn == "diversification_fwd" or dp_launches[kn] > 0,
@@ -3184,7 +3323,7 @@ def main():
     say(json.dumps({"training": training}))
     say(json.dumps({"serving": serving}))
     say(json.dumps({"loop": loop_record}))
-    say(f"phases 1-18: {time.perf_counter() - t_script:.1f} s")
+    say(f"phases 1-19: {time.perf_counter() - t_script:.1f} s")
     say(json.dumps({"classifier": classifier}))
     say(json.dumps({"vgg": vgg}))
     say(json.dumps({"evaluation": evaluation}))
@@ -3193,6 +3332,7 @@ def main():
     say(json.dumps({"batch_norm": batch_norm}))
     say(json.dumps({"data_parallel": data_parallel}))
     say(json.dumps({"scripts": scripts}))
+    say(json.dumps({"bench": bench_record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

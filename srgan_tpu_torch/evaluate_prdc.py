@@ -29,6 +29,7 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+import sys
 import tempfile
 
 import numpy as np
@@ -46,6 +47,7 @@ from srgan_tpu_torch.utils.checkpoint import (
     load_state_dict_file,
     restore_checkpoint,
 )
+from srgan_tpu_torch.utils.chiplock import cli_device, hold_chip
 
 
 def main(argv=None):
@@ -153,4 +155,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    # the bench's contention guard, on the device the run uses
+    with hold_chip("evaluate_prdc", device=cli_device(sys.argv[1:])):
+        main()

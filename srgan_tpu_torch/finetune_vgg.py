@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import tempfile
 
 import torch
@@ -35,6 +36,7 @@ from srgan_tpu_torch.data import DataLoader, FaceDataset, make_synthetic_celeba
 from srgan_tpu_torch.evaluation.features import torchvision_init_
 from srgan_tpu_torch.training.vgg_finetune import VGGFinetuneTrainer
 from srgan_tpu_torch.utils.checkpoint import load_state_dict_file
+from srgan_tpu_torch.utils.chiplock import cli_device, hold_chip
 from srgan_tpu_torch.utils.metrics import MetricLogger
 
 N_CLASSES = 4
@@ -124,4 +126,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    # the bench's contention guard, on the device the run uses
+    with hold_chip("finetune_vgg", device=cli_device(sys.argv[1:])):
+        main()

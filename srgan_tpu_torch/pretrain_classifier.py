@@ -30,6 +30,7 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 import tempfile
 
 import numpy as np
@@ -40,6 +41,7 @@ from srgan_tpu_torch.data import DataLoader, FaceDataset, make_synthetic_celeba
 from srgan_tpu_torch.data.dataset import LABEL_DESCRIPTION
 from srgan_tpu_torch.training.classifier import ClassifierTrainer
 from srgan_tpu_torch.utils import viz
+from srgan_tpu_torch.utils.chiplock import cli_device, hold_chip
 from srgan_tpu_torch.utils.metrics import MetricLogger
 
 
@@ -163,4 +165,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    # the bench's contention guard, on the device the run uses
+    with hold_chip("pretrain_classifier", device=cli_device(sys.argv[1:])):
+        main()

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import tempfile
 
 import numpy as np
@@ -37,6 +38,7 @@ from srgan_tpu_torch.data.dataset import LABEL_DESCRIPTION
 from srgan_tpu_torch.training import gan
 from srgan_tpu_torch.utils import viz
 from srgan_tpu_torch.utils.checkpoint import restore_checkpoint
+from srgan_tpu_torch.utils.chiplock import cli_device, hold_chip
 
 
 def main(argv=None):
@@ -108,4 +110,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    # the bench's contention guard, on the device the run uses
+    with hold_chip("sample_sweep", device=cli_device(sys.argv[1:])):
+        main()

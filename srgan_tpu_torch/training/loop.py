@@ -46,6 +46,7 @@ from srgan_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from srgan_tpu_torch.utils.chiplock import hold_chip
 from srgan_tpu_torch.utils.metrics import MetricLogger, StepTimer
 
 
@@ -251,6 +252,12 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
         profiler.start()
+    # advertise the card's occupancy for the epochs, so that the bench
+    # waits or annotates its line instead of recording a contended number;
+    # under a mesh each rank holds its own marker (entered by hand to join
+    # the try/finally below, as the JAX loop does)
+    chip = hold_chip(f"train_gan {out_dir}", device=trainer.device)
+    chip.__enter__()
     try:
         for epoch in range(start_epoch, epochs):
             timer.reset()
@@ -288,6 +295,7 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
                     save_checkpoint(ckpt_dir, state, step=epoch + 1)
                 break
     finally:
+        chip.__exit__(None, None, None)
         # the caller (a notebook, a test) keeps a working Ctrl-C
         for sig, h in old_handlers.items():
             signal.signal(sig, h)

@@ -41,7 +41,7 @@ FEED = ("srgan_tpu_torch.data", "srgan_tpu_torch.data.attributes",
         "srgan_tpu_torch.data.native", "srgan_tpu_torch.data.sampling",
         "srgan_tpu_torch.data.synthetic", "srgan_tpu_torch.ops.image",
         "srgan_tpu_torch.training.loop", "srgan_tpu_torch.train",
-        "srgan_tpu_torch.utils.metrics",
+        "srgan_tpu_torch.utils.metrics", "srgan_tpu_torch.utils.chiplock",
         # classifier pretraining and PRDC evaluation
         "srgan_tpu_torch.evaluation", "srgan_tpu_torch.evaluation.features",
         "srgan_tpu_torch.evaluation.harness",
@@ -62,8 +62,10 @@ FEED = ("srgan_tpu_torch.data", "srgan_tpu_torch.data.attributes",
         "srgan_tpu_torch.make_fixture", "srgan_tpu_torch.build_label_folder",
         "srgan_tpu_torch.translation_oracle",
         "srgan_tpu_torch.compare_results", "srgan_tpu_torch.bench_loader",
-        "srgan_tpu_torch.data_scale_dryrun", "srgan_tpu_torch.bench_serving")
-TWINS = FEED[-7:]
+        "srgan_tpu_torch.data_scale_dryrun", "srgan_tpu_torch.bench_serving",
+        # the twin of the root bench.py
+        "srgan_tpu_torch.bench")
+TWINS = FEED[-8:]
 
 _HELP = r"""
 import importlib, sys
