@@ -15,6 +15,8 @@ import ctypes
 
 import torch
 
+from srgan_tpu_torch.utils import spans
+
 # kernel launches since the last reset, forward and backward; the smoke run
 # sets them to 0 before it drives a path and reads them afterwards
 LAUNCHES = 0
@@ -197,8 +199,9 @@ def _launch_bwd(x, t, g, b, mu, rstd, dy, relu: bool, affine: bool):
 
 def cbinorm_fwd(x, t, g, b, eps: float = 1e-5, relu: bool = False):
     """The forward alone, no graph: the kernel on a CUDA x, ``cbinorm_plain``
-    on a CPU x.  Returns (out, mu, rstd)."""
+    on a CPU x.  Returns (out, mu, rstd).  Counts one ``norm.fwd``."""
     _check(x, t, g, b)
+    spans.count("norm.fwd")
     if x.device.type == "cuda":
         return _launch(x, t, g, b, eps, relu)
     return cbinorm_plain(x, t, g, b, eps, relu)
@@ -210,8 +213,9 @@ def cbinorm_bwd(x, t, g, b, mu, rstd, dy, relu: bool = False,
     a CPU x.  dy must have x's shape; it is cast to x's dtype.  Returns
     (dx, dt, dg, db); without ``affine`` (no gradient wanted for t, g or b)
     the kernel writes dx alone, and dt, dg and db are None on both
-    devices."""
+    devices.  Counts one ``norm.bwd``."""
     _check(x, t, g, b)
+    spans.count("norm.bwd")
     dy = dy.to(x.dtype).contiguous()
     if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
         raise ValueError(f"cbinorm_bwd: dy {tuple(dy.shape)} on {dy.device} "

@@ -82,7 +82,9 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint in --out")
     ap.add_argument("--profile-dir",
-                    help="write a torch.profiler trace here")
+                    help="write a torch.profiler trace of the run here "
+                         "(trace.json) and the program's spans beside it "
+                         "(spans.json)")
     ap.add_argument("--debug-nans", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "

@@ -44,6 +44,7 @@ from srgan_tpu_torch.training.state import (
     freeze_encoder_trunk,
     set_lr,
 )
+from srgan_tpu_torch.utils import spans
 
 TRAINERS = ("singlegan", "singlegan_solo", "srgan")
 NORM_TYPES = ("instance", "batch")
@@ -255,9 +256,10 @@ def _apply_grads(loss, *opts: torch.optim.Optimizer, mesh=None):
         grads = _mean_over_ranks(grads, mesh)
     for p, g in zip(params, grads):
         p.grad = g
-    for opt in opts:
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+    with spans.span("train.optimizer"):
+        for opt in opts:
+            opt.step()
+            opt.zero_grad(set_to_none=True)
 
 
 class GANTrainer:
@@ -511,14 +513,19 @@ class GANTrainer:
         this rank's rows of the global batch).  Updates ``state`` in place;
         returns the metrics as 0-dim fp32 tensors on the device (errD, errG,
         errE, errG_ex and the loss_* terms), with a mesh the global
-        batch's (the mean over the ranks)."""
+        batch's (the mean over the ranks).  The call is the span
+        ``train.step``; inside it ``train.d_update`` (each of the k - 1
+        unrolled D updates), ``train.phase1``, ``train.phase2`` and, in
+        each of their gradient applications, ``train.optimizer``."""
         self._check_fused()
-        with _mode(True, state.G, state.E):
-            metrics = self._step(state, batch, epoch)
-        if self.mesh is not None:
-            keys = sorted(metrics)
-            metrics = dict(zip(keys, _mean_over_ranks(
-                [metrics[key] for key in keys], self.mesh)))
+        with spans.span(spans.STEP, step=state.step,
+                        batch=len(batch["image"])):
+            with _mode(True, state.G, state.E):
+                metrics = self._step(state, batch, epoch)
+            if self.mesh is not None:
+                keys = sorted(metrics)
+                metrics = dict(zip(keys, _mean_over_ranks(
+                    [metrics[key] for key in keys], self.mesh)))
         return metrics
 
     def _step(self, state: GANTrainState, batch, epoch):
@@ -552,88 +559,99 @@ class GANTrainer:
         # ---- k - 1 unrolled D updates, each with a fresh latent
         errD0 = None
         for i in range(k - 1):
-            latent = self._draw_batch(B, ndim)
-            with torch.no_grad(), self._autocast():
-                fake = G(images, torch.cat([onehot_tgt, latent], 1))
-            errD = self._d_update(state, images, fake, onehot_src, src, tgt)
-            if i == 0:
-                errD0 = errD
-                snapshot = take_snapshot()
+            with spans.span("train.d_update", i=i):
+                latent = self._draw_batch(B, ndim)
+                with torch.no_grad(), self._autocast():
+                    fake = G(images, torch.cat([onehot_tgt, latent], 1))
+                errD = self._d_update(state, images, fake, onehot_src, src,
+                                      tgt)
+                if i == 0:
+                    errD0 = errD
+                    snapshot = take_snapshot()
 
         # ---- phase 1: the k-th fake, computed once: its detached value
         # drives the k-th D update and its graph serves the G/E gradient
-        latent = self._draw_batch(B, ndim)
-        cond_fake = torch.cat([onehot_tgt, latent], 1)
-        with self._autocast():
-            fake = G(images, cond_fake)
-        errD_last = self._d_update(state, images, fake, onehot_src, src, tgt)
-        if errD0 is None:
-            errD0 = errD_last
-            snapshot = take_snapshot()
+        with spans.span("train.phase1"):
+            latent = self._draw_batch(B, ndim)
+            cond_fake = torch.cat([onehot_tgt, latent], 1)
+            with self._autocast():
+                fake = G(images, cond_fake)
+            errD_last = self._d_update(state, images, fake, onehot_src,
+                                       src, tgt)
+            if errD0 is None:
+                errD0 = errD_last
+                snapshot = take_snapshot()
 
-        metrics: Dict[str, torch.Tensor] = {}
-        with self._autocast():
-            mu, logvar = self._E(E, images, onehot_src)
-        # "latent": a fresh reparametrised style for each G call; "mu": mu
-        style_recon = self._sample_latent(mu, logvar) if use_latent else mu
-        with self._autocast():
+            metrics: Dict[str, torch.Tensor] = {}
+            with self._autocast():
+                mu, logvar = self._E(E, images, onehot_src)
+            # "latent": a fresh reparametrised style for each G call;
+            # "mu": mu
+            style_recon = (self._sample_latent(mu, logvar) if use_latent
+                           else mu)
+            with self._autocast():
+                if lw.idt > 0:
+                    style_idt = (self._sample_latent(mu, logvar) if use_latent
+                                 else mu)
+                    recon, idt_img = _g_pair(
+                        G, fake, torch.cat([onehot_src, style_recon], 1),
+                        images, torch.cat([onehot_src, style_idt], 1))
+                else:
+                    recon = G(fake, torch.cat([onehot_src, style_recon], 1))
+            # only the G/E parameters get a gradient (``_apply_grads``)
+            errG = self._g_adversarial(D, fake, onehot_tgt, tgt)
+            err_cycle = L.l1_loss(images, recon)
+            errG = errG + lw.cycle * err_cycle
+            metrics["loss_cycle"] = err_cycle
+            errE_out = lw.cycle * err_cycle
             if lw.idt > 0:
-                style_idt = (self._sample_latent(mu, logvar) if use_latent
-                             else mu)
-                recon, idt_img = _g_pair(
-                    G, fake, torch.cat([onehot_src, style_recon], 1),
-                    images, torch.cat([onehot_src, style_idt], 1))
-            else:
-                recon = G(fake, torch.cat([onehot_src, style_recon], 1))
-        # only the G/E parameters get a gradient (``_apply_grads``)
-        errG = self._g_adversarial(D, fake, onehot_tgt, tgt)
-        err_cycle = L.l1_loss(images, recon)
-        errG = errG + lw.cycle * err_cycle
-        metrics["loss_cycle"] = err_cycle
-        errE_out = lw.cycle * err_cycle
-        if lw.idt > 0:
-            err_idt = L.l1_loss(images, idt_img)
-            errG = errG + lw.idt * err_idt
-            errE_out = errE_out + lw.idt * err_idt
-            metrics["loss_idt"] = err_idt
-        errE, div_metrics = self._diversification(mu, logvar,
-                                                  state.hist_target)
-        metrics.update(div_metrics)
-        errE_out = errE_out + errE
-        _apply_grads(errG + errE, state.opt_g, state.opt_e, mesh=self.mesh)
+                err_idt = L.l1_loss(images, idt_img)
+                errG = errG + lw.idt * err_idt
+                errE_out = errE_out + lw.idt * err_idt
+                metrics["loss_idt"] = err_idt
+            errE, div_metrics = self._diversification(mu, logvar,
+                                                      state.hist_target)
+            metrics.update(div_metrics)
+            errE_out = errE_out + errE
+            _apply_grads(errG + errE, state.opt_g, state.opt_e,
+                         mesh=self.mesh)
 
         # ---- phase 2: G alone on the style regression, fresh forwards at
         # the phase-1-updated parameters
-        if lw.idt_reg * lw.idt > 0:
-            if self.conditional_e:
-                # SingleGAN flavour: a random source-style identity image
-                reg_target = self._draw_batch(B, ndim)
-                style = reg_target
+        with spans.span("train.phase2"):
+            if lw.idt_reg * lw.idt > 0:
+                if self.conditional_e:
+                    # SingleGAN flavour: a random source-style identity
+                    # image
+                    reg_target = self._draw_batch(B, ndim)
+                    style = reg_target
+                else:
+                    # SRGAN flavour: an encoder-driven identity image
+                    with torch.no_grad(), self._autocast():
+                        reg_target, logvar_s = self._E(E, images, None)
+                    style = (self._sample_latent(reg_target, logvar_s)
+                             if use_latent else reg_target)
+                with self._autocast():
+                    fake2, idt2 = _g_pair(G, images, cond_fake, images,
+                                          torch.cat([onehot_src, style], 1))
+                    mu_both = self._E(
+                        E, torch.cat([fake2, idt2], 0),
+                        torch.cat([onehot_tgt, onehot_src], 0))[0]
+                errG_ex = lw.reg * L.l1_loss(latent, mu_both[:B]) \
+                    + L.l1_loss(reg_target, mu_both[B:]) * lw.idt_reg \
+                    * (lw.idt / lw.cycle)
             else:
-                # SRGAN flavour: an encoder-driven identity image
-                with torch.no_grad(), self._autocast():
-                    reg_target, logvar_s = self._E(E, images, None)
-                style = (self._sample_latent(reg_target, logvar_s)
-                         if use_latent else reg_target)
-            with self._autocast():
-                fake2, idt2 = _g_pair(G, images, cond_fake, images,
-                                      torch.cat([onehot_src, style], 1))
-                mu_both = self._E(E, torch.cat([fake2, idt2], 0),
-                                  torch.cat([onehot_tgt, onehot_src], 0))[0]
-            errG_ex = lw.reg * L.l1_loss(latent, mu_both[:B]) \
-                + L.l1_loss(reg_target, mu_both[B:]) * lw.idt_reg \
-                * (lw.idt / lw.cycle)
-        else:
-            with self._autocast():
-                mu_t = self._E(E, G(images, cond_fake), onehot_tgt)[0]
-            errG_ex = lw.reg * L.l1_loss(latent, mu_t)
-        _apply_grads(errG_ex, state.opt_g, mesh=self.mesh)
-        if snapshot is not None:
-            # D's parameters back to the post-first-update values; Adam's
-            # moments keep all k updates (srgan_tpu/training/gan.py:506)
-            with torch.no_grad():
-                for p, v in zip(D.parameters(), snapshot):
-                    p.copy_(v)
+                with self._autocast():
+                    mu_t = self._E(E, G(images, cond_fake), onehot_tgt)[0]
+                errG_ex = lw.reg * L.l1_loss(latent, mu_t)
+            _apply_grads(errG_ex, state.opt_g, mesh=self.mesh)
+            if snapshot is not None:
+                # D's parameters back to the post-first-update values;
+                # Adam's moments keep all k updates
+                # (srgan_tpu/training/gan.py:506)
+                with torch.no_grad():
+                    for p, v in zip(D.parameters(), snapshot):
+                        p.copy_(v)
         state.step += 1
 
         metrics = {key: v.detach() for key, v in metrics.items()}

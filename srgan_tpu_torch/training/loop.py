@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import signal
 import tempfile
 from typing import Dict, Optional
@@ -39,7 +40,7 @@ from srgan_tpu_torch.data.dataset import LABEL_DESCRIPTION
 from srgan_tpu_torch.data.loader import prefetch_to_device
 from srgan_tpu_torch.training.gan import GANTrainer, resolve_device
 from srgan_tpu_torch.training.state import TRAINABLE_WHEN_FROZEN
-from srgan_tpu_torch.utils import viz
+from srgan_tpu_torch.utils import spans, viz
 from srgan_tpu_torch.utils.checkpoint import (
     latest_step,
     load_state_dict_file,
@@ -132,6 +133,28 @@ def _any_rank(flag: bool, mesh) -> bool:
     return bool(t.item() > 0)
 
 
+def _waited(batches):
+    """The batches, each taken from ``batches`` inside a
+    ``train.data_wait`` span."""
+    it = iter(batches)
+    while True:
+        with spans.span("train.data_wait"):
+            batch = next(it, None)
+        if batch is None:
+            return
+        yield batch
+
+
+def _trace_base_ns(trace_path: str) -> int:
+    """The ``baseTimeNanoseconds`` of a profiler export, which comes
+    before its events; 0 (``ts`` from the epoch) in an export without
+    one."""
+    with open(trace_path) as f:
+        head = f.read(1 << 16)
+    m = re.search(r'"baseTimeNanoseconds":\s*(\d+)', head)
+    return int(m.group(1)) if m else 0
+
+
 def _check_finite(metrics: Dict[str, torch.Tensor], epoch: int, step: int):
     for k, v in metrics.items():
         if not bool(torch.isfinite(v).all()):
@@ -165,7 +188,10 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
     ``resume`` continues from the latest checkpoint, with the loader's
     generator and the step's draws started again from their seeds, as the
     JAX loop does.  ``debug_nans`` raises at the first non-finite metric.
-    ``profile_dir`` receives a ``torch.profiler`` trace of the whole run.
+    ``profile_dir`` receives a ``torch.profiler`` trace of the whole run,
+    ``trace.json``, and beside it ``spans.json``: the program's spans of
+    the run (``utils/spans.py``: each step, its phases, the waits for
+    data) on the same time base, for a trace viewer to lay over it.
     ``sample_grids`` writes ``progress_e{epoch:03d}_i{it:05d}.png`` of a
     test-split image at every log of every ``grid_every_epochs``-th epoch
     (``srgan_tpu/training/loop.py:191-210``); it needs matplotlib, and
@@ -243,7 +269,7 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
     step = state.step
     # the grids' random latents, apart from the step's draws
     grid_gen = torch.Generator().manual_seed(cfg.train.seed + 2)
-    profiler = None
+    profiler = recording = None
     if profile_dir and writer:
         from torch.profiler import ProfilerActivity, profile
 
@@ -252,6 +278,8 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
         profiler.start()
+        recording = spans.recording()
+        rec = recording.__enter__()
     # advertise the card's occupancy for the epochs, so that the bench
     # waits or annotates its line instead of recording a contended number;
     # under a mesh each rank holds its own marker (entered by hand to join
@@ -261,8 +289,8 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
     try:
         for epoch in range(start_epoch, epochs):
             timer.reset()
-            for it, batch in enumerate(prefetch_to_device(loader,
-                                                          trainer.device)):
+            for it, batch in enumerate(_waited(prefetch_to_device(
+                    loader, trainer.device))):
                 metrics = trainer.step(state, batch, epoch)
                 timer.update(cfg.train.batch_size)
                 step += 1
@@ -301,9 +329,12 @@ def train_gan(cfg: ExperimentConfig, out_dir: str,
             signal.signal(sig, h)
         if profiler is not None:
             profiler.stop()
+            recording.__exit__(None, None, None)
             os.makedirs(profile_dir, exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(profile_dir,
-                                                      "trace.json"))
+            trace_json = os.path.join(profile_dir, "trace.json")
+            profiler.export_chrome_trace(trace_json)
+            rec.write_chrome(os.path.join(profile_dir, "spans.json"),
+                             _trace_base_ns(trace_json))
         logger.close()
     if not stop_requested and writer:
         save_checkpoint(ckpt_dir, state, step=epochs)

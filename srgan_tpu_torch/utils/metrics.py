@@ -24,7 +24,6 @@ class MetricLogger:
             self._f = open(path, "a")
         else:
             self._f = None
-        self.history = []
 
     def log(self, metrics: Dict, **extra):
         """Append one record: every value that converts to float does (a
@@ -33,7 +32,6 @@ class MetricLogger:
         rec = {k: (float(v) if hasattr(v, "__float__") else v)
                for k, v in {**metrics, **extra}.items()}
         rec.setdefault("time", time.time())
-        self.history.append(rec)
         if self._f:
             self._f.write(json.dumps(rec) + "\n")
             self._f.flush()
@@ -59,21 +57,14 @@ class StepTimer:
     def reset(self):
         self._t0 = time.perf_counter()
         self._images = 0
-        self._steps = 0
 
     def update(self, batch_size: int):
         self._images += batch_size
-        self._steps += 1
 
     @property
     def images_per_sec(self) -> float:
         dt = time.perf_counter() - self._t0
         return self._images / dt if dt > 0 else 0.0
-
-    @property
-    def ms_per_step(self) -> float:
-        dt = time.perf_counter() - self._t0
-        return dt / self._steps * 1000 if self._steps else 0.0
 
 
 def pickle_save(data, path):

@@ -313,9 +313,8 @@ def test_metric_logger_record_and_pickles(tmp_path):
     assert filecmp.cmp(tmp_path / "port.jsonl", tmp_path / "jax.jsonl",
                        shallow=False)
     timer = metrics.StepTimer()
-    assert timer.ms_per_step == 0.0
     timer.update(8)
-    assert timer.images_per_sec > 0 and timer.ms_per_step > 0
+    assert timer.images_per_sec > 0
     data = {"a": np.arange(3), "b": [1, "x"]}
     metrics.pickle_save(data, str(tmp_path / "d.pkl"))
     back = jmetrics.pickle_load(str(tmp_path / "d.pkl"))

@@ -60,17 +60,54 @@ RTOL = 1e-4
 
 # ---------------------------------------------------------------- the loop
 
-def test_train_gan_end_to_end(tmp_path, data):
+@pytest.fixture(scope="module")
+def profiled_run(tmp_path_factory, data):
+    """One epoch with ``profile_dir``: (trainer, state, run dir, profile
+    dir)."""
+    tmp_path = tmp_path_factory.mktemp("profiled")
     trainer, state = _train(tiny_cfg(), tmp_path / "run", data, epochs=1,
                             profile_dir=str(tmp_path / "prof"),
                             debug_nans=True)
-    recs = _records(tmp_path / "run")
+    return trainer, state, tmp_path / "run", tmp_path / "prof"
+
+
+def test_train_gan_end_to_end(profiled_run):
+    trainer, state, run, prof = profiled_run
+    recs = _records(run)
     assert recs and all(np.isfinite(r["errG"]) for r in recs)
     assert [r["step"] for r in recs] == [1, 2, 3, 4]  # 32 images, batch 8
-    assert os.path.isdir(tmp_path / "run" / "ckpt" / "step_1")
-    assert not os.path.isdir(tmp_path / "run" / "ckpt" / "step_0")
-    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    assert os.path.isdir(run / "ckpt" / "step_1")
+    assert not os.path.isdir(run / "ckpt" / "step_0")
+    assert os.path.getsize(prof / "trace.json") > 0
     assert state.step == 4 and trainer.device.type == "cpu"
+
+
+def test_profile_dir_writes_the_spans_beside_the_trace(profiled_run):
+    """``spans.json``: the run's spans as chrome-trace events on the time
+    base of ``trace.json``, each step inside the trace's span of time."""
+    _, _, _, prof = profiled_run
+    with open(prof / "trace.json") as f:
+        trace = json.load(f)
+    with open(prof / "spans.json") as f:
+        got = json.load(f)
+    base = trace.get("baseTimeNanoseconds", 0)
+    assert got["baseTimeNanoseconds"] == base
+    events = got["traceEvents"]
+    names = [e["name"] for e in events]
+    # k = 1: phase 1 holds the one D update
+    assert names.count("train.step") == 4
+    assert names.count("train.phase1") == names.count("train.phase2") == 4
+    assert names.count("train.d_update") == 0
+    # one wait a batch, and the last, for the loader's end
+    assert names.count("train.data_wait") == 5
+    assert names.count("train.optimizer") == 4 * 3
+    traced = [e["ts"] for e in trace["traceEvents"]
+              if e.get("ph") == "X" and "ts" in e]
+    steps = [e for e in events if e["name"] == "train.step"]
+    assert min(traced) <= min(e["ts"] for e in steps)
+    assert max(e["ts"] + e["dur"] for e in steps) <= max(traced)
+    assert [e["args"]["step"] for e in steps] == [0, 1, 2, 3]
+    assert all(e["args"]["step_id"] == e["args"]["span_id"] for e in steps)
 
 
 def test_train_gan_refusals(tmp_path, data, monkeypatch):
