@@ -45,15 +45,19 @@ from the root of a checkout; no install step, no argument.  Phases:
      backward at batch 8 through the kernels against the same models with
      the plain norm forced, every parameter's gradient compared;
   8. the train step of 05_srgan_full at full width (batch 128, k = 5, the
-     proposed loss stack, frozen encoder trunk, fp32): 1 warm and 3 timed
-     steps with every metric printed and finite and every kernel's launches
-     per step checked against the count derived from the code; one step
-     under torch.profiler; one step with SRGAN_TPU_FUSED_DIV=1 against the
-     unfused one; a bf16 step, its launches of the NHWC norm pair checked
-     the same way (the nets are channels-last on the card under bf16), and
-     one more under torch.profiler, whose cuDNN layout transposes must stay
-     under 0.3 ms and come from D's heads alone (traced to the
-     convolution that launched them), with its copy kernels named;
+     proposed loss stack, frozen encoder trunk, fp32): 1 eager step, 1
+     that captures the step's CUDA graphs and 3 timed (replayed) steps
+     with every metric printed and finite and every kernel's launches per
+     step checked against the count derived from the code (an eager
+     step's counted by the wrappers, a replayed one's on the device's
+     trace: ``Launches``); one step under torch.profiler; one step with SRGAN_TPU_FUSED_DIV=1
+     against the unfused one; bf16 steps, their
+     launches of the NHWC norm pair checked the same way (the nets are
+     channels-last on the card under bf16), one more under torch.profiler
+     and one eager one (``bench.eager_step``: its operations on the
+     profile), whose cuDNN layout transposes must stay under 0.3 ms and
+     come from D's heads alone (traced to the convolution that launched
+     them), with its copy kernels named;
   9. CUDA-event timings of every kernel at the shapes of one train step,
      the norms in fp32 and bf16, each pair NCHW and channels-last (the
      NHWC pair also checked there against the plain twins, ReLU on, with
@@ -99,10 +103,12 @@ from the root of a checkout; no install step, no argument.  Phases:
      off): 01_proposed_singlegan_k5 (per-domain Ds, conditional encoder),
      01_conventional_singlegan (k 1, the reparametrised style),
      02_singlegan_solod and 05_srgan_full with unrolled_restore=True, each
-     1 warm and 2 timed steps with every metric finite, the peak memory and
-     every kernel's launches per step as derived; for unrolled_restore, D's
-     parameters after each step bit-equal to their values after its first
-     update and Adam's step count at all k updates; one bf16 step of
+     1 eager, 1 capturing and 2 timed steps with every metric finite, the
+     peak memory and every kernel's launches per step as derived; for
+     unrolled_restore, D's parameters after each step (eager or replayed)
+     bit-equal to their values after its first update, and on a replayed
+     step to the graphs' snapshot, and Adam's step count at all k
+     updates; one timed bf16 step of
      01_proposed_singlegan_k5;
  15. the visualisation module: the progress grid's panels and a
      ``get_samples`` sweep with injected latents on the card against the
@@ -111,9 +117,9 @@ from the root of a checkout; no install step, no argument.  Phases:
      ``train_gan`` with grids on: where matplotlib is missing it must
      refuse before any step, else write the JAX loop's PNG names;
  16. batch-norm mode: 05_srgan_full with norm_type="batch" at full width
-     (batch 128, k = 5, fp32, TF32 off), 1 warm and 2 timed steps with
-     CUDA events and the peak memory, every metric finite, every running
-     statistic of G and E moved, no norm kernel and 1 + 1 histogram
+     (batch 128, k = 5, fp32, TF32 off), 1 eager, 1 capturing and 2 timed
+     steps with CUDA events and the peak memory, every metric finite, every
+     running statistic of G and E moved, no norm kernel and 1 + 1 histogram
      launches a step as derived, one more step under torch.profiler, and
      the eval-mode transform of one image against its row of the
      batch-of-128 call (1e-4);
@@ -175,6 +181,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import io
 import itertools
@@ -216,6 +223,7 @@ from srgan_tpu_torch.data import (  # noqa: E402
     native,
 )
 from srgan_tpu_torch.training import gan, loop  # noqa: E402
+from srgan_tpu_torch.training.graphs import Segment  # noqa: E402
 
 PRESET = "05_srgan_full"
 DEV = "cuda"
@@ -225,6 +233,10 @@ ENCODE_N = 8
 TIMING_BATCH = 32
 CHECK_BATCH = 8
 TIMED_STEPS = 3
+# a train step's first call at a batch size runs eagerly, the second
+# captures its CUDA graphs (and replays them), the rest replay: the timed
+# steps come after both
+STEP_KIND = ("eager", "capture", "timed")
 # fp32: both sides compute in fp32, sums in another order; bf16: about two
 # bf16 ulps at |y| <= 4, both outputs compared in fp32
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -450,6 +462,116 @@ def read_counts():
             "soft_histogram_fwd": histogram.LAUNCHES,
             "soft_histogram_bwd": histogram.BWD_LAUNCHES,
             "diversification_fwd": diversification.LAUNCHES}
+
+
+# each kernel of ``read_counts`` by its name on the device's trace
+# (csrc/*.cu): one call of a launcher runs one of them (the norm's
+# backward under affine also a ``cbinorm_bwd_param_kernel``, which counts
+# as none)
+KERNEL_NAMES = {
+    "cbinorm_fwd": re.compile(r"\bcbinorm_fwd_kernel\b"),
+    "cbinorm_bwd": re.compile(
+        r"\bcbinorm_bwd_(?:warp|cta|two_pass)_kernel\b"),
+    "cbinorm_fwd_nhwc": re.compile(r"\bcbinorm_fwd_nhwc_kernel\b"),
+    "cbinorm_bwd_nhwc": re.compile(r"\bcbinorm_bwd_nhwc_kernel\b"),
+    "soft_histogram_fwd": re.compile(r"\bsoft_histogram_fwd_kernel\b"),
+    "soft_histogram_bwd": re.compile(r"\bsoft_histogram_bwd_kernel\b"),
+    "diversification_fwd": re.compile(r"\bdiversification_fwd_kernel\b")}
+
+
+def kernel_of(name: str):
+    """The key of ``read_counts`` a device kernel's name is, or None."""
+    return next((kn for kn, rx in KERNEL_NAMES.items() if rx.search(name)),
+                None)
+
+
+# the host's wait between the trace's start or end and the device's work
+TRACE_EDGE_S = 0.05
+
+
+@contextlib.contextmanager
+def traced_counts():
+    """Yields a dict that holds, once the block is left, every kernel of
+    ``read_counts`` by its launches in the block, counted on a
+    torch.profiler trace of the device: what the device ran, launched by a
+    wrapper or by a replayed CUDA graph (whose replays call no wrapper, so
+    the module counters do not see them).  The trace can lose a record (on
+    an H100 with torch 2.11: in two of four runs of this script, once a
+    kernel of a step and once an empty kernel at an end of the window;
+    never in 150 windows of the same steps in scripts of their own), so
+    its count can read low, never high (``Launches``).  An empty kernel
+    runs just inside each end of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_EDGE_S)
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        yield counts
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_EDGE_S)
+    kernels = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kernels += 1
+        kn = kernel_of(e.name)
+        if kn is not None:
+            counts[kn] += 1
+    check(kernels > 0, "the profiler's trace holds no device kernel: the "
+          "launches cannot be counted")
+
+
+def calls_since(before):
+    """The wrappers' calls (``read_counts``) since ``before``."""
+    return {k: v - before[k] for k, v in read_counts().items()}
+
+
+def replays(trainer, batch) -> bool:
+    """Whether ``trainer.step`` on ``batch`` runs CUDA graphs (captures
+    them and replays them once, or replays them) rather than eagerly."""
+    key = (len(batch["image"]), trainer.cfg.train.compute_dtype)
+    return trainer._graphable() and key in trainer._graphs
+
+
+class Launches:
+    """A path's launches step by step against ``want``.  An eager step's
+    are counted by the wrappers at the launch, and equal it.  A step that
+    runs CUDA graphs calls no wrapper on a replay, so its launches are
+    counted on the device's trace, which may lose a record: each such step
+    reads at most ``want``, and the most of them, kernel by kernel, equals
+    it.  The graphs launch the same kernels on every replay, so a kernel
+    missing from them reads low on every such step, a lost record on
+    one."""
+
+    def __init__(self, what, want):
+        self.what, self.want, self.graphed = what, want, []
+
+    def step(self, counts, graphed: bool):
+        if graphed:
+            check(all(counts[k] <= n for k, n in self.want.items()),
+                  f"{self.what}: launches {counts} on the trace of a "
+                  f"replayed step, above the derived {self.want}")
+            self.graphed.append(counts)
+        else:
+            check(counts == self.want, f"{self.what}: launches {counts} "
+                  f"of an eager step, derived {self.want}")
+
+    def done(self):
+        if self.graphed:
+            most = {k: max(c[k] for c in self.graphed) for k in self.want}
+            check(most == self.want, f"{self.what}: launches of the steps "
+                  f"that ran CUDA graphs, at most {most}, derived "
+                  f"{self.want}")
+            lost = [c for c in self.graphed if c != self.want]
+            if lost:
+                say(f"{self.what}: the trace lost records of "
+                    f"{len(lost)} of {len(self.graphed)} steps that ran "
+                    f"CUDA graphs: {lost}")
 
 
 # the norm's two pairs of kernels: a path launches the NCHW pair or the
@@ -1223,19 +1345,30 @@ def make_batches(cfg, n, seed):
     return out
 
 
-def timed_step(trainer, state, batch):
-    """(metrics as floats, device ms, host ms, launches) of one step."""
-    torch.cuda.synchronize()
-    reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    metrics = trainer.step(state, batch)
-    end.record()
-    torch.cuda.synchronize()
-    host_ms = 1e3 * (time.perf_counter() - t0)
-    counts = read_counts()
+def timed_step(trainer, state, batch, launches=None):
+    """(metrics as floats, device ms, host ms, launches) of one step; its
+    launches counted by the wrappers where it steps eagerly, on the
+    device's trace where it runs CUDA graphs (``Launches``), which
+    ``launches`` checks if given."""
+    graphed = replays(trainer, batch)
+    before = read_counts()
+    with traced_counts() if graphed \
+            else contextlib.nullcontext() as traced:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        metrics = trainer.step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    counts = traced if graphed else calls_since(before)
+    check(graphed == (trainer._graphable() and trainer._graphs.get(
+        (len(batch["image"]), trainer.cfg.train.compute_dtype)) is not None),
+        "the step ran otherwise than predicted (eager or graphed)")
+    if launches is not None:
+        launches.step(counts, graphed)
     metrics = {k: float(v) for k, v in metrics.items()}
     check(all(math.isfinite(v) for v in metrics.values()),
           f"a metric is not finite: {metrics}")
@@ -1380,21 +1513,23 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
     check(os.environ.get("SRGAN_TPU_FUSED_DIV") != "1",
           "SRGAN_TPU_FUSED_DIV=1 is set in the environment; the smoke run "
           "sets it itself for its one fused step")
-    batches = make_batches(cfg, 1 + TIMED_STEPS, seed=5)
+    batches = make_batches(cfg, 2 + TIMED_STEPS, seed=5)
     want = expected_counts(cfg, g_per, e_per, fused=False)
     t0 = time.perf_counter()
     trainer, state = fresh(cfg)
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     steps = []
+    checker = Launches(f"{PRESET} fp32", want)
     for i, batch in enumerate(batches):
-        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch)
-        say(f"step {i} ({'warm' if i == 0 else 'timed'}): device "
+        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch,
+                                                      checker)
+        say(f"step {i} ({STEP_KIND[min(i, 2)]}): device "
             f"{dev_ms:.1f} ms, host {host_ms:.1f} ms, launches {counts}, "
             + json.dumps(metrics))
-        check(counts == want, f"launches {counts}, derived {want}")
         steps.append(dict(metrics=metrics, device_ms=dev_ms,
                           host_ms=host_ms))
+    checker.done()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     gflop = bench.count_step_flops(trainer, state, batches[-1]) / B / 1e9
     say("== phase 8a: one more fp32 step under torch.profiler")
@@ -1429,8 +1564,8 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
     del trainer, state
     torch.cuda.empty_cache()
 
-    say("== phase 8c: bf16 compute (torch.autocast), 1 warm and 1 timed "
-        "step")
+    say("== phase 8c: bf16 compute (torch.autocast), 1 eager, 1 capturing "
+        "and 1 timed step")
     bcfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, compute_dtype="bfloat16"))
     # the nets channels-last: the norm's NHWC pair
@@ -1438,15 +1573,20 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
     trainer, state = fresh(bcfg)
     torch.cuda.reset_peak_memory_stats()
     bf16 = []
-    for batch in batches[:2]:
-        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch)
+    checker = Launches(f"{PRESET} bf16", bwant)
+    for batch in batches[:3]:
+        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch,
+                                                      checker)
         say(f"bf16 step: device {dev_ms:.1f} ms, host {host_ms:.1f} ms, "
             f"launches {counts}, " + json.dumps(metrics))
-        check(counts == bwant, f"launches {counts}, derived {bwant}")
         bf16.append(dict(metrics=metrics, device_ms=dev_ms,
                          host_ms=host_ms))
+    checker.done()
     bf16_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof_bf16 = profile_step(lambda: trainer.step(state, batches[2]),
+    # eager: a replayed graph's kernels have no operation above them to
+    # trace a transpose to its convolution by
+    prof_bf16 = profile_step(lambda: bench.eager_step(trainer, state,
+                                                      batches[3]),
                              sources=True)
     say_profile("one bf16 step", prof_bf16)
     # the nets are channels-last on the card under bf16, as cuDNN's
@@ -1468,15 +1608,16 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
     del trainer, state
     torch.cuda.empty_cache()
 
-    timed = steps[1:]
+    timed = steps[2:]
     mean_ms = sum(s["device_ms"] for s in timed) / len(timed)
     say(f"{gflop:.2f} GFLOP an image a step (bench.count_step_flops): "
         f"fp32 {gflop * B / mean_ms:.2f} TFLOP/s, bf16 "
-        f"{gflop * B / bf16[1]['device_ms']:.2f} TFLOP/s on the device")
+        f"{gflop * B / bf16[2]['device_ms']:.2f} TFLOP/s on the device")
     record = dict(
         preset=PRESET, batch=B, unrolled_k=k, tf32=False,
         freeze_pretrained=True, card=name, power_limit=power_limit,
         init_s=init_s, warm_step_device_ms=steps[0]["device_ms"],
+        capture_step_device_ms=steps[1]["device_ms"],
         step_device_ms=[s["device_ms"] for s in timed],
         step_host_ms=[s["host_ms"] for s in timed],
         step_device_ms_mean=mean_ms, img_s=1e3 * B / mean_ms,
@@ -1487,11 +1628,12 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
         fused_step=dict(device_ms=f_ms, launches=f_counts,
                         worst_rel_diff_to_unfused=worst),
         bf16=dict(warm_step_device_ms=bf16[0]["device_ms"],
-                  step_device_ms=bf16[1]["device_ms"],
-                  step_host_ms=bf16[1]["host_ms"],
-                  img_s=1e3 * B / bf16[1]["device_ms"], peak_mem_gib=bf16_peak,
-                  step_tflop_s=gflop * B / bf16[1]["device_ms"],
-                  launches_per_step=bwant, metrics=bf16[1]["metrics"],
+                  capture_step_device_ms=bf16[1]["device_ms"],
+                  step_device_ms=bf16[2]["device_ms"],
+                  step_host_ms=bf16[2]["host_ms"],
+                  img_s=1e3 * B / bf16[2]["device_ms"], peak_mem_gib=bf16_peak,
+                  step_tflop_s=gflop * B / bf16[2]["device_ms"],
+                  launches_per_step=bwant, metrics=bf16[2]["metrics"],
                   profile=prof_bf16))
     return record, want, f_counts, bwant
 
@@ -1807,10 +1949,19 @@ def probe_host():
 class LoopProbe:
     """Wraps the loop's device feed and the trainer's step while it is
     entered: the host seconds each ``next`` of the feed takes (the step
-    waiting on its batch) and CUDA events around each step."""
+    waiting on its batch), CUDA events around each step, and each step's
+    launches as ``timed_step`` counts them, checked against ``want`` by a
+    ``Launches`` of each trainer (``done``); ``calls``: the wrappers'
+    calls inside the steps."""
 
-    def __init__(self):
-        self.waits, self.events = [], []
+    def __init__(self, want):
+        self.waits, self.events, self.counts = [], [], []
+        self.want, self.launches = want, []
+        self.calls = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def done(self):
+        for _, checker in self.launches:
+            checker.done()
 
     def __enter__(self):
         self.feed, self.step = loop.prefetch_to_device, gan.GANTrainer.step
@@ -1827,11 +1978,27 @@ class LoopProbe:
                 yield batch
 
         def timed_step(trainer, state, batch, epoch=0):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            metrics = step(trainer, state, batch, epoch)
-            end.record()
+            graphed = replays(trainer, batch)
+            before = read_counts()
+            with traced_counts() if graphed \
+                    else contextlib.nullcontext() as traced:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                metrics = step(trainer, state, batch, epoch)
+                end.record()
+            calls = calls_since(before)
+            for k, v in calls.items():
+                self.calls[k] += v
+            launches = next((lc for t, lc in self.launches if t is trainer),
+                            None)
+            if launches is None:
+                launches = Launches(f"loop trainer {len(self.launches)}",
+                                    self.want)
+                self.launches.append((trainer, launches))
+            counts = traced if graphed else calls
+            launches.step(counts, graphed)
+            self.counts.append(counts)
             self.events.append((start, end))
             return metrics
 
@@ -1889,15 +2056,18 @@ def loop_phase(cfg, g_per, e_per, bf16_img_s, name, power_limit, tmp):
                classifier_ckpt=clf, sample_grids=False,
                checkpoint_every=1, echo=False, device=DEV,
                decode=decode)
+    per_step = expected_counts(lcfg, g_per, e_per, fused=False)
     t0 = time.perf_counter()
-    with LoopProbe() as probe:
-        reset_counts()
+    before = read_counts()
+    with LoopProbe(per_step) as probe:
         loop.train_gan(lcfg, out, epochs=LOOP_EPOCHS, **run)
         _, state = loop.train_gan(lcfg, out, epochs=LOOP_EPOCHS + 1,
                                   resume=True, **run)
         torch.cuda.synchronize()
-        counts = read_counts()
     loop_s = time.perf_counter() - t0
+    outside = {k: v - probe.calls[k] for k, v in calls_since(before).items()}
+    probe.done()
+    counts = {k: sum(c[k] for c in probe.counts) for k in KERNEL_NAMES}
     device_ms = probe.device_ms()
     check(os.path.exists(os.path.join(out, "config.json")),
           "no config.json")
@@ -1921,9 +2091,10 @@ def loop_phase(cfg, g_per, e_per, bf16_img_s, name, power_limit, tmp):
     except ValueError as e:
         refused = "different config" in str(e)
     check(refused, "a resume with a changed config did not refuse")
-    per_step = expected_counts(lcfg, g_per, e_per, fused=False)
-    want = {k: v * n_steps for k, v in per_step.items()}
-    check(counts == want, f"launches {counts}, derived {want}")
+    check(len(probe.launches) == 2 and len(probe.counts) == n_steps,
+          f"{len(probe.launches)} trainers, {len(probe.counts)} steps")
+    check(not any(outside.values()), f"launches outside the loop's steps "
+          f"{outside}")
 
     train_ds, _ = loop.build_datasets(lcfg, img_root, attr_file)
     feed = {}
@@ -2456,42 +2627,83 @@ def evaluation_phase(g_per, loop_out, vgg_pth, work, name, power_limit):
 # ---------------------------------------------------------------------------
 
 class DSnapshots:
-    """Wraps ``state.opt_d.step``: after the first D update of each train
-    step it keeps a copy of D's parameters, the values that
-    ``unrolled_restore`` must leave them at."""
+    """Keeps a copy of D's parameters after the first D update of each
+    train step, the values that ``unrolled_restore`` must leave them at:
+    on an eager step after the first call of ``state.opt_d.step``, which
+    it wraps; on a replayed one after the first replay of the unrolled D
+    update's graph (``Segment.replay``, wrapped for the block),
+    the point where the step copies its own snapshot.  A capture's call
+    of ``opt_d.step`` runs nothing and takes no copy.  Call ``begin``
+    before each step."""
 
-    def __init__(self, state, k):
-        self.state, self.k, self.calls, self.snap = state, k, 0, None
-        self.real = state.opt_d.step
+    def __init__(self, trainer, state, k):
+        check(k > 1, "unrolled_restore with k = 1 restores to phase 1's "
+              "update, inside its graph")
+        self.trainer, self.state, self.k = trainer, state, k
+        self.snap, self.first, self.graphs = None, False, None
+
+    def __enter__(self):
+        trainer, state = self.trainer, self.state
+        self.real = real = state.opt_d.step
+        self.real_replay = real_replay = Segment.replay
 
         def step(*a, **kw):
-            out = self.real(*a, **kw)
-            if self.calls % self.k == 0:
-                self.snap = [p.detach().clone()
-                             for p in state.D.parameters()]
-            self.calls += 1
+            out = real(*a, **kw)
+            if not torch.cuda.is_current_stream_capturing():
+                self.took()
             return out
 
+        def replay(seg):
+            real_replay(seg)
+            g = next((g for g in trainer._graphs.values()
+                      if g is not None and seg is g.d_update), None)
+            if g is not None:
+                self.took(g)
+
         state.opt_d.step = step
+        Segment.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        self.state.opt_d.step = self.real
+        Segment.replay = self.real_replay
+
+    def begin(self):
+        self.snap, self.first, self.graphs = None, True, None
+
+    def took(self, g=None):
+        if self.first:
+            self.snap = [p.detach().clone()
+                         for p in self.state.D.parameters()]
+            self.first, self.graphs = False, g
 
     def check(self, steps_done):
         state = self.state
+        check(self.snap is not None, "no D update was seen in the step")
         same = all(torch.equal(p, v) for p, v in
                    zip(state.D.parameters(), self.snap))
         adam = {int(state.opt_d.state[p]["step"])
                 for p in state.D.parameters()}
         check(same, "unrolled_restore: D's parameters are not their values "
               "after the step's first update")
+        replayed = self.graphs is not None
+        if replayed:
+            check(all(torch.equal(p, v) for p, v in
+                      zip(self.graphs.snapshot, self.snap)),
+                  "unrolled_restore: the graphs' snapshot is not D after "
+                  "the step's first update")
         check(adam == {self.k * steps_done}, f"Adam's step counts {adam}, "
               f"want {self.k * steps_done} (all k updates)")
-        return dict(params_equal_snapshot=same, adam_step=adam.pop())
+        return dict(params_equal_snapshot=same, adam_step=adam.pop(),
+                    replayed=replayed)
 
 
 def variants_phase(g_per, e_per, name, power_limit):
     """Phase 14.  Returns the `variants` record and the launches per step
     of each variant."""
     say(f"== phase 14: the trainer variants at full width, batch 128, fp32 "
-        f"(TF32 off): 1 warm and {VARIANT_TIMED_STEPS} timed steps each, "
+        f"(TF32 off): 1 eager, 1 capturing and {VARIANT_TIMED_STEPS} timed "
+        "steps each, "
         "random weights from a seeded torch.Generator, synthetic batches")
     record, launches = {}, {}
     for preset, over in VARIANTS:
@@ -2502,27 +2714,36 @@ def variants_phase(g_per, e_per, name, power_limit):
         key = preset + "".join(f"+{k}" for k in over)
         k = cfg.train.unrolled_k
         want = expected_counts(cfg, g_per, e_per)
-        batches = make_batches(cfg, 1 + VARIANT_TIMED_STEPS, seed=14)
+        batches = make_batches(cfg, 2 + VARIANT_TIMED_STEPS, seed=14)
         t0 = time.perf_counter()
         trainer, state = fresh(cfg)
         init_s = time.perf_counter() - t0
-        snaps = DSnapshots(state, k) if cfg.train.unrolled_restore else None
+        snaps = DSnapshots(trainer, state, k) \
+            if cfg.train.unrolled_restore else None
         torch.cuda.reset_peak_memory_stats()
-        steps, restore = [], None
-        for i, batch in enumerate(batches):
-            metrics, dev_ms, host_ms, counts = timed_step(trainer, state,
-                                                          batch)
-            check(counts == want, f"{key}: launches {counts}, derived "
-                  f"{want}")
-            if snaps is not None:
-                restore = snaps.check(i + 1)
-            steps.append(dict(metrics=metrics, device_ms=dev_ms,
-                              host_ms=host_ms))
-            say(f"{key} step {i} ({'warm' if i == 0 else 'timed'}): device "
-                f"{dev_ms:.1f} ms, host {host_ms:.1f} ms, launches "
-                f"{counts}, " + json.dumps(metrics))
+        steps, restore = [], []
+        checker = Launches(key, want)
+        with snaps or contextlib.nullcontext():
+            for i, batch in enumerate(batches):
+                if snaps is not None:
+                    snaps.begin()
+                metrics, dev_ms, host_ms, counts = timed_step(
+                    trainer, state, batch, checker)
+                if snaps is not None:
+                    restore.append(snaps.check(i + 1))
+                steps.append(dict(metrics=metrics, device_ms=dev_ms,
+                                  host_ms=host_ms))
+                say(f"{key} step {i} ({STEP_KIND[min(i, 2)]}): device "
+                    f"{dev_ms:.1f} ms, host {host_ms:.1f} ms, launches "
+                    f"{counts}, " + json.dumps(metrics))
+        checker.done()
+        # the eager step's restore, then the capturing step's and the
+        # replayed steps' (the graphs' own)
+        check(not restore or [r["replayed"] for r in restore]
+              == [False] + [True] * (len(batches) - 1),
+              f"{key}: steps replayed {[r['replayed'] for r in restore]}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        timed = [st["device_ms"] for st in steps[1:]]
+        timed = [st["device_ms"] for st in steps[2:]]
         gflop = bench.count_step_flops(trainer, state, batches[-1]) \
             / cfg.train.batch_size / 1e9
         mean_ms = sum(timed) / len(timed)
@@ -2532,14 +2753,14 @@ def variants_phase(g_per, e_per, name, power_limit):
                    freeze_pretrained=cfg.pretrained_encoder, init_s=init_s,
                    warm_step_device_ms=steps[0]["device_ms"],
                    step_device_ms=timed,
-                   step_host_ms=[st["host_ms"] for st in steps[1:]],
+                   step_host_ms=[st["host_ms"] for st in steps[2:]],
                    step_device_ms_mean=mean_ms,
                    img_s=1e3 * cfg.train.batch_size * len(timed) / sum(timed),
                    step_gflop_per_image=gflop,
                    step_tflop_s=gflop * cfg.train.batch_size / mean_ms,
                    peak_mem_gib=peak, launches_per_step=want,
                    metrics_last_step=steps[-1]["metrics"])
-        if restore is not None:
+        if restore:
             rec["unrolled_restore"] = restore
         record[key] = rec
         launches[key] = want
@@ -2554,19 +2775,20 @@ def variants_phase(g_per, e_per, name, power_limit):
     want = expected_counts(bcfg, g_per, e_per)
     torch.cuda.reset_peak_memory_stats()
     bf16 = []
-    for batch in make_batches(bcfg, 2, seed=15):
-        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch)
-        check(counts == want, f"bf16 {preset}: launches {counts}, derived "
-              f"{want}")
+    checker = Launches(f"bf16 {preset}", want)
+    for batch in make_batches(bcfg, 3, seed=15):
+        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch,
+                                                      checker)
         bf16.append(dict(device_ms=dev_ms, host_ms=host_ms, metrics=metrics))
         say(f"{preset} bf16 step: device {dev_ms:.1f} ms, host "
             f"{host_ms:.1f} ms, launches {counts}, " + json.dumps(metrics))
+    checker.done()
     record[preset]["bf16"] = dict(
         warm_step_device_ms=bf16[0]["device_ms"],
-        step_device_ms=bf16[1]["device_ms"],
-        img_s=1e3 * bcfg.train.batch_size / bf16[1]["device_ms"],
+        step_device_ms=bf16[2]["device_ms"],
+        img_s=1e3 * bcfg.train.batch_size / bf16[2]["device_ms"],
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        metrics=bf16[1]["metrics"])
+        metrics=bf16[2]["metrics"])
     del trainer, state
     torch.cuda.empty_cache()
     for key, rec in record.items():
@@ -2754,24 +2976,25 @@ def batch_norm_phase(g_per, e_per, name, power_limit):
         cfg.model, norm_type="batch"))
     B, k = cfg.train.batch_size, cfg.train.unrolled_k
     say(f"== phase 16: batch-norm mode of {PRESET} at full width: batch "
-        f"{B}, k = {k}, fp32 (TF32 off), frozen encoder trunk, 1 warm and "
-        f"{BN_TIMED_STEPS} timed steps")
+        f"{B}, k = {k}, fp32 (TF32 off), frozen encoder trunk, 1 eager, 1 "
+        f"capturing and {BN_TIMED_STEPS} timed steps")
     # CBBNorm and BatchNorm are plain torch ops: no norm kernel a forward
     want = expected_counts(cfg, 0, 0)
-    batches = make_batches(cfg, 1 + BN_TIMED_STEPS, seed=16)
+    batches = make_batches(cfg, 2 + BN_TIMED_STEPS, seed=16)
     trainer, state = fresh(cfg)
     before = {"G": running_stats(state.G), "E": running_stats(state.E)}
     torch.cuda.reset_peak_memory_stats()
     steps = []
+    checker = Launches("batch mode", want)
     for i, batch in enumerate(batches):
-        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch)
-        say(f"batch-norm step {i} ({'warm' if i == 0 else 'timed'}): device "
+        metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch,
+                                                      checker)
+        say(f"batch-norm step {i} ({STEP_KIND[min(i, 2)]}): device "
             f"{dev_ms:.1f} ms, host {host_ms:.1f} ms, launches {counts}, "
             + json.dumps(metrics))
-        check(counts == want, f"batch mode: launches {counts}, derived "
-              f"{want}")
         steps.append(dict(metrics=metrics, device_ms=dev_ms,
                           host_ms=host_ms))
+    checker.done()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = profile_step(lambda: trainer.step(state, batches[-1]))
     say_profile("one batch-mode step", prof)
@@ -2796,7 +3019,7 @@ def batch_norm_phase(g_per, e_per, name, power_limit):
     check(bool(torch.isfinite(full).all()), "batch-mode transform is not "
           "finite")
     check(row_err <= BN_ROW_TOL, "eval-mode transform depends on the batch")
-    timed = [s["device_ms"] for s in steps[1:]]
+    timed = [s["device_ms"] for s in steps[2:]]
     del trainer, state
     torch.cuda.empty_cache()
     return dict(preset=PRESET, norm_type="batch", batch=B, unrolled_k=k,
@@ -2804,7 +3027,7 @@ def batch_norm_phase(g_per, e_per, name, power_limit):
                 power_limit=power_limit,
                 warm_step_device_ms=steps[0]["device_ms"],
                 step_device_ms=timed,
-                step_host_ms=[s["host_ms"] for s in steps[1:]],
+                step_host_ms=[s["host_ms"] for s in steps[2:]],
                 step_device_ms_mean=sum(timed) / len(timed),
                 img_s=1e3 * B * len(timed) / sum(timed),
                 peak_mem_gib=peak, launches_per_step=want,
@@ -3283,11 +3506,13 @@ def bench_phase(g_per, e_per, bf16_host_ms, work, name, power_limit):
     saved = {k: os.environ.get(k) for k in BENCH_ENV}
     os.environ.update(BENCH_ENV)
     out = io.StringIO()
-    reset_counts()
     t0 = time.perf_counter()
     try:
+        # the launches on the device's trace: the bench's steps replay
+        # graphs
         with hold_chip("chip_smoke phase 19"), \
-                contextlib.redirect_stdout(out):
+                contextlib.redirect_stdout(out), \
+                traced_counts() as counts:
             returned = run_cli(bench.main, ["--all", "--arms-out", arms_out])
     finally:
         for k, v in saved.items():
@@ -3296,7 +3521,6 @@ def bench_phase(g_per, e_per, bf16_host_ms, work, name, power_limit):
             else:
                 os.environ[k] = v
     bench_s = time.perf_counter() - t0
-    counts = read_counts()
     say(out.getvalue().rstrip())
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     with open(arms_out) as f:

@@ -101,19 +101,35 @@ def bench_batch(cfg, device) -> dict:
             "target_label": torch.from_numpy(tgt).to(device)}
 
 
+def eager_step(trainer, state, batch, epoch: int = 0):
+    """``trainer.step`` with its CUDA graphs off for the call: the step's
+    operations are dispatched one by one, where a FLOP counter or a
+    profiler's op records see them (a replayed graph shows its kernels
+    alone).  The graphs stay valid for the steps after it."""
+    own = vars(trainer).get("_graphable")
+    trainer._graphable = lambda: False
+    try:
+        return trainer.step(state, batch, epoch)
+    finally:
+        if own is None:
+            del trainer._graphable
+        else:
+            trainer._graphable = own
+
+
 def count_step_flops(trainer, state, batch) -> float:
     """FLOPs of one whole ``trainer.step`` (the forwards, the backwards and
     the optimiser), counted by ``torch.utils.flop_counter.FlopCounterMode``
-    over the ATen operations the step dispatches: the counterpart of XLA's
-    count of the compiled step (``bench.py:50-100``).  The step is real: it
-    updates ``state``.  The norm and histogram kernels are ctypes calls, not
-    ATen operations, and are not counted; their elementwise FLOPs are
-    negligible beside the convolutions'."""
+    over the ATen operations the step dispatches (``eager_step``): the
+    counterpart of XLA's count of the compiled step (``bench.py:50-100``).
+    The step is real: it updates ``state``.  The norm and histogram kernels
+    are ctypes calls, not ATen operations, and are not counted; their
+    elementwise FLOPs are negligible beside the convolutions'."""
     from torch.utils.flop_counter import FlopCounterMode
 
     counter = FlopCounterMode(display=False)
     with counter:
-        trainer.step(state, batch)
+        eager_step(trainer, state, batch)
     return float(counter.get_total_flops())
 
 

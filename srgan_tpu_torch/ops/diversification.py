@@ -29,7 +29,8 @@ import torch
 from srgan_tpu_torch.ops import histogram
 from srgan_tpu_torch.ops import losses as L
 
-# kernel launches since the last reset
+# kernel launches since the last reset, counted where the wrapper
+# launches (a CUDA graph's replays are not)
 LAUNCHES = 0
 # the most blocks in the kernel's cluster (csrc/diversification.cu checks
 # every plan against the same constant)

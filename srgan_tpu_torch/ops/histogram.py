@@ -18,7 +18,8 @@ import math
 
 import torch
 
-# kernel launches since the last reset, forward and backward
+# kernel launches since the last reset, forward and backward, counted
+# where the wrappers launch (a CUDA graph's replays are not)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 

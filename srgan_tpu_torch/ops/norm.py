@@ -25,8 +25,9 @@ import torch
 from srgan_tpu_torch.utils import spans
 
 # kernel launches since the last reset, forward and backward, of the NCHW
-# pair and of the NHWC pair; the smoke run sets them to 0 before it drives
-# a path and reads them afterwards
+# pair and of the NHWC pair, counted where the wrappers launch (a CUDA
+# graph's capture counts once, its replays not at all); set to 0 before a
+# path is driven and read afterwards
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 NHWC_LAUNCHES = 0

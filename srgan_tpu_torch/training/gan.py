@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -41,10 +41,12 @@ from srgan_tpu_torch.nn.generator import SingleGenerator
 from srgan_tpu_torch.nn.layers import BatchNorm, CBBNorm, init_torch_default_
 from srgan_tpu_torch.ops import losses as L
 from srgan_tpu_torch.ops import norm
+from srgan_tpu_torch.training import graphs
 from srgan_tpu_torch.training.state import (
     GANTrainState,
     adam,
     freeze_encoder_trunk,
+    make_capturable,
     set_lr,
 )
 from srgan_tpu_torch.utils import spans
@@ -300,6 +302,30 @@ def _apply_grads(loss, *opts: torch.optim.Optimizer, mesh=None):
             opt.zero_grad(set_to_none=True)
 
 
+class _Inputs(NamedTuple):
+    """A batch as the step takes it: images (B, C, H, W) in the nets'
+    layout, the labels and their one-hots."""
+    images: torch.Tensor
+    src: torch.Tensor
+    tgt: torch.Tensor
+    onehot_src: torch.Tensor
+    onehot_tgt: torch.Tensor
+
+
+class _StepGraphs(NamedTuple):
+    """The captured segments of a step at one batch size, and the tensors
+    around them: the static inputs, the first errD and D's snapshot (the
+    unrolled D update's copies, or phase 1's outputs where k = 1), and
+    D's parameters the snapshot is copied from."""
+    inputs: _Inputs
+    d_update: Optional[graphs.Segment]
+    phase1: graphs.Segment
+    phase2: graphs.Segment
+    errD0: torch.Tensor
+    snapshot: Optional[List[torch.Tensor]]
+    d_params: List[torch.Tensor]
+
+
 class GANTrainer:
     """The train step of ``srgan_tpu/training/gan.py:235-511`` on one
     device: ``k - 1`` unrolled D updates, then phase 1 (the k-th D update
@@ -318,7 +344,8 @@ class GANTrainer:
     Every standard-normal draw of the step (the k latents, the
     reparametrisation's noise, phase 2's SingleGAN identity target) goes
     through ``_draw_latent``, in the JAX step's order, from ``self.rng``;
-    tests override the seam to inject the JAX side's draws.
+    tests override the seam to inject the JAX side's draws (such a
+    trainer steps eagerly).
     ``compute_dtype="bfloat16"`` runs the forwards under ``torch.autocast``,
     as serving does; the losses are fp32.
 
@@ -335,6 +362,12 @@ class GANTrainer:
     as the JAX package does (``:93-101``).  The fused diversification
     kernel is a single-device path: with a mesh and
     ``SRGAN_TPU_FUSED_DIV=1`` the trainer raises.
+
+    On one CUDA device the step runs as CUDA graphs (``_graphed_step``):
+    the unrolled D update, phase 1 and phase 2 are captured once a batch
+    size and replayed, so the host launches a few graphs a step instead
+    of thousands of kernels; the kernels, their inputs and the draws are
+    the eager step's.  The CPU, the mesh and the fused path step eagerly.
     """
 
     def __init__(self, cfg: ExperimentConfig, device=None, mesh=None,
@@ -368,6 +401,11 @@ class GANTrainer:
         self.bf16 = cfg.train.compute_dtype == "bfloat16"
         self.rng = torch.Generator(device=self.device).manual_seed(
             cfg.train.seed + 1)
+        # the step's CUDA graphs by (batch size, compute dtype): None after
+        # the eager call that comes before the capture; ``_graphs_of``
+        # holds the state they were captured from (``_graphed_step``)
+        self._graphs: Dict[Tuple[int, str], Optional[_StepGraphs]] = {}
+        self._graphs_of: Optional[tuple] = None
 
     def _check_fused(self):
         if self.mesh is not None and \
@@ -427,11 +465,13 @@ class GANTrainer:
             for m in list(G.modules()) + list(E.modules()):
                 if isinstance(m, (CBBNorm, BatchNorm)):
                     m.mesh = self.mesh
+        # capturable for the graphed step, and from its first (eager) call
+        cap = self.mesh is None and self.device.type == "cuda"
         return GANTrainState(
             G=G, D=D, E=E,
-            opt_g=adam(G.parameters(), t.adam_b1, t.adam_b2),
-            opt_d=adam(D.parameters(), t.adam_b1, t.adam_b2),
-            opt_e=adam(e_params, t.adam_b1, t.adam_b2),
+            opt_g=adam(G.parameters(), t.adam_b1, t.adam_b2, cap),
+            opt_d=adam(D.parameters(), t.adam_b1, t.adam_b2, cap),
+            opt_e=adam(e_params, t.adam_b1, t.adam_b2, cap),
             hist_target=hist_target)
 
     def lr_at(self, epoch: int) -> Tuple[float, float, float]:
@@ -554,148 +594,264 @@ class GANTrainer:
         batch's (the mean over the ranks).  The call is the span
         ``train.step``; inside it ``train.d_update`` (each of the k - 1
         unrolled D updates), ``train.phase1``, ``train.phase2`` and, in
-        each of their gradient applications, ``train.optimizer``."""
+        each of their gradient applications, ``train.optimizer``.
+
+        On one CUDA device (``_graphable``) the step replays CUDA graphs
+        (``_graphed_step``), which launch what the eager step launches and
+        count what it counts, in the same spans; ``train.optimizer`` then
+        closes only on the eager and capturing calls, since a replay runs
+        the optimizer inside its segment's graph."""
         self._check_fused()
         with spans.span(spans.STEP, step=state.step,
                         batch=len(batch["image"])):
             with _mode(True, state.G, state.E):
-                metrics = self._step(state, batch, epoch)
+                if self._graphable():
+                    metrics = self._graphed_step(state, batch, epoch)
+                else:
+                    metrics = self._step(state, batch, epoch)
             if self.mesh is not None:
                 keys = sorted(metrics)
                 metrics = dict(zip(keys, _mean_over_ranks(
                     [metrics[key] for key in keys], self.mesh)))
         return metrics
 
-    def _step(self, state: GANTrainState, batch, epoch):
-        cfg, lw = self.cfg, self.cfg.loss
-        k, ndim = cfg.train.unrolled_k, cfg.model.ndim
-        n_classes = cfg.model.n_classes
-        use_latent = cfg.train.encoded_feature == "latent"
-        G, D, E = state.G, state.D, state.E
-        lr_g, lr_d, lr_e = self.lr_at(epoch)
-        set_lr(state.opt_g, lr_g)
-        set_lr(state.opt_d, lr_d)
-        set_lr(state.opt_e, lr_e)
+    def _set_lrs(self, state: GANTrainState, epoch: int):
+        for opt, lr in zip((state.opt_g, state.opt_d, state.opt_e),
+                           self.lr_at(epoch)):
+            set_lr(opt, lr)
 
+    def _inputs(self, batch) -> _Inputs:
         images = _nchw(torch.as_tensor(batch["image"], dtype=torch.float32,
                                        device=self.device),
                        memory_format(self.device,
                                      self.cfg.train.compute_dtype))
         src = torch.as_tensor(batch["source_label"]).to(self.device)
         tgt = torch.as_tensor(batch["target_label"]).to(self.device)
-        onehot_src = onehot(src, n_classes)
-        onehot_tgt = onehot(tgt, n_classes)
-        B = images.shape[0]
-        snapshot = None
+        n_classes = self.cfg.model.n_classes
+        return _Inputs(images, src, tgt, onehot(src, n_classes),
+                       onehot(tgt, n_classes))
 
-        def take_snapshot():
-            # a copy: the reference's state_dict() snapshot aliased the
-            # parameters Adam updates in place (module docstring of
-            # srgan_tpu/training/gan.py)
-            return [p.detach().clone() for p in D.parameters()] \
-                if cfg.train.unrolled_restore else None
+    def _snapshot(self, D):
+        # a copy: the reference's state_dict() snapshot aliased the
+        # parameters Adam updates in place (module docstring of
+        # srgan_tpu/training/gan.py)
+        return [p.detach().clone() for p in D.parameters()] \
+            if self.cfg.train.unrolled_restore else None
 
-        # ---- k - 1 unrolled D updates, each with a fresh latent
-        errD0 = None
-        for i in range(k - 1):
+    def _step(self, state: GANTrainState, batch, epoch):
+        self._set_lrs(state, epoch)
+        x = self._inputs(batch)
+        errD0 = snapshot = None
+        for i in range(self.cfg.train.unrolled_k - 1):
             with spans.span("train.d_update", i=i):
-                latent = self._draw_batch(B, ndim)
-                with torch.no_grad(), self._autocast():
-                    fake = G(images, torch.cat([onehot_tgt, latent], 1))
-                errD = self._d_update(state, images, fake, onehot_src, src,
-                                      tgt)
+                errD = self._unrolled_d(state, x)
                 if i == 0:
-                    errD0 = errD
-                    snapshot = take_snapshot()
-
-        # ---- phase 1: the k-th fake, computed once: its detached value
-        # drives the k-th D update and its graph serves the G/E gradient
+                    errD0, snapshot = errD, self._snapshot(state.D)
         with spans.span("train.phase1"):
-            latent = self._draw_batch(B, ndim)
-            cond_fake = torch.cat([onehot_tgt, latent], 1)
-            with self._autocast():
-                fake = G(images, cond_fake)
-            errD_last = self._d_update(state, images, fake, onehot_src,
-                                       src, tgt)
-            if errD0 is None:
-                errD0 = errD_last
-                snapshot = take_snapshot()
-
-            metrics: Dict[str, torch.Tensor] = {}
-            with self._autocast():
-                mu, logvar = self._E(E, images, onehot_src)
-            # "latent": a fresh reparametrised style for each G call;
-            # "mu": mu
-            style_recon = (self._sample_latent(mu, logvar) if use_latent
-                           else mu)
-            with self._autocast():
-                if lw.idt > 0:
-                    style_idt = (self._sample_latent(mu, logvar) if use_latent
-                                 else mu)
-                    recon, idt_img = _g_pair(
-                        G, fake, torch.cat([onehot_src, style_recon], 1),
-                        images, torch.cat([onehot_src, style_idt], 1))
-                else:
-                    recon = G(fake, torch.cat([onehot_src, style_recon], 1))
-            # only the G/E parameters get a gradient (``_apply_grads``)
-            errG = self._g_adversarial(D, fake, onehot_tgt, tgt)
-            err_cycle = L.l1_loss(images, recon)
-            errG = errG + lw.cycle * err_cycle
-            metrics["loss_cycle"] = err_cycle
-            errE_out = lw.cycle * err_cycle
-            if lw.idt > 0:
-                err_idt = L.l1_loss(images, idt_img)
-                errG = errG + lw.idt * err_idt
-                errE_out = errE_out + lw.idt * err_idt
-                metrics["loss_idt"] = err_idt
-            errE, div_metrics = self._diversification(mu, logvar,
-                                                      state.hist_target)
-            metrics.update(div_metrics)
-            errE_out = errE_out + errE
-            _apply_grads(errG + errE, state.opt_g, state.opt_e,
-                         mesh=self.mesh)
-
-        # ---- phase 2: G alone on the style regression, fresh forwards at
-        # the phase-1-updated parameters
+            p1 = self._phase1(state, x, first=errD0 is None)
+        if errD0 is None:
+            errD0, snapshot = p1["errD"], p1["snapshot"]
         with spans.span("train.phase2"):
-            if lw.idt_reg * lw.idt > 0:
-                if self.conditional_e:
-                    # SingleGAN flavour: a random source-style identity
-                    # image
-                    reg_target = self._draw_batch(B, ndim)
-                    style = reg_target
-                else:
-                    # SRGAN flavour: an encoder-driven identity image
-                    with torch.no_grad(), self._autocast():
-                        reg_target, logvar_s = self._E(E, images, None)
-                    style = (self._sample_latent(reg_target, logvar_s)
-                             if use_latent else reg_target)
-                with self._autocast():
-                    fake2, idt2 = _g_pair(G, images, cond_fake, images,
-                                          torch.cat([onehot_src, style], 1))
-                    mu_both = self._E(
-                        E, torch.cat([fake2, idt2], 0),
-                        torch.cat([onehot_tgt, onehot_src], 0))[0]
-                errG_ex = lw.reg * L.l1_loss(latent, mu_both[:B]) \
-                    + L.l1_loss(reg_target, mu_both[B:]) * lw.idt_reg \
-                    * (lw.idt / lw.cycle)
-            else:
-                with self._autocast():
-                    mu_t = self._E(E, G(images, cond_fake), onehot_tgt)[0]
-                errG_ex = lw.reg * L.l1_loss(latent, mu_t)
-            _apply_grads(errG_ex, state.opt_g, mesh=self.mesh)
-            if snapshot is not None:
-                # D's parameters back to the post-first-update values;
-                # Adam's moments keep all k updates
-                # (srgan_tpu/training/gan.py:506)
-                with torch.no_grad():
-                    for p, v in zip(D.parameters(), snapshot):
-                        p.copy_(v)
+            metrics = self._phase2(state, x, p1, errD0, snapshot)
         state.step += 1
-
-        metrics = {key: v.detach() for key, v in metrics.items()}
-        metrics["errD"] = errD0
-        metrics["errE"] = errE_out.detach()
-        metrics["errG"] = (errG + errG_ex).detach()
-        metrics["errG_ex"] = errG_ex.detach()
         return metrics
+
+    # ---- the step's segments: each a function of the state and the
+    # inputs alone, which the graphed step captures
+    def _unrolled_d(self, st: GANTrainState, x: _Inputs):
+        """One of the k - 1 unrolled D updates, with a fresh latent:
+        errD."""
+        latent = self._draw_batch(x.images.shape[0], self.cfg.model.ndim)
+        with torch.no_grad(), self._autocast():
+            fake = st.G(x.images, torch.cat([x.onehot_tgt, latent], 1))
+        return self._d_update(st, x.images, fake, x.onehot_src, x.src,
+                              x.tgt)
+
+    def _phase1(self, st: GANTrainState, x: _Inputs, first: bool):
+        """The k-th fake, computed once: its detached value drives the k-th
+        D update and its graph serves the G/E gradient.  ``first``: no
+        unrolled update came before (k = 1), so this update's errD is the
+        step's and the restore snapshot is taken after it."""
+        cfg, lw = self.cfg, self.cfg.loss
+        G, D, E = st.G, st.D, st.E
+        images, onehot_src = x.images, x.onehot_src
+        use_latent = cfg.train.encoded_feature == "latent"
+        latent = self._draw_batch(images.shape[0], cfg.model.ndim)
+        cond_fake = torch.cat([x.onehot_tgt, latent], 1)
+        with self._autocast():
+            fake = G(images, cond_fake)
+        errD = self._d_update(st, images, fake, onehot_src, x.src, x.tgt)
+        snapshot = self._snapshot(D) if first else None
+
+        metrics: Dict[str, torch.Tensor] = {}
+        with self._autocast():
+            mu, logvar = self._E(E, images, onehot_src)
+        # "latent": a fresh reparametrised style for each G call; "mu": mu
+        style_recon = self._sample_latent(mu, logvar) if use_latent else mu
+        with self._autocast():
+            if lw.idt > 0:
+                style_idt = (self._sample_latent(mu, logvar) if use_latent
+                             else mu)
+                recon, idt_img = _g_pair(
+                    G, fake, torch.cat([onehot_src, style_recon], 1),
+                    images, torch.cat([onehot_src, style_idt], 1))
+            else:
+                recon = G(fake, torch.cat([onehot_src, style_recon], 1))
+        # only the G/E parameters get a gradient (``_apply_grads``)
+        errG = self._g_adversarial(D, fake, x.onehot_tgt, x.tgt)
+        err_cycle = L.l1_loss(images, recon)
+        errG = errG + lw.cycle * err_cycle
+        metrics["loss_cycle"] = err_cycle
+        errE_out = lw.cycle * err_cycle
+        if lw.idt > 0:
+            err_idt = L.l1_loss(images, idt_img)
+            errG = errG + lw.idt * err_idt
+            errE_out = errE_out + lw.idt * err_idt
+            metrics["loss_idt"] = err_idt
+        errE, div_metrics = self._diversification(mu, logvar, st.hist_target)
+        metrics.update(div_metrics)
+        errE_out = errE_out + errE
+        _apply_grads(errG + errE, st.opt_g, st.opt_e, mesh=self.mesh)
+        return {"latent": latent, "cond_fake": cond_fake, "errD": errD,
+                "snapshot": snapshot,
+                "metrics": {key: v.detach() for key, v in metrics.items()},
+                "errG": errG.detach(), "errE": errE_out.detach()}
+
+    def _phase2(self, st: GANTrainState, x: _Inputs, p1, errD0, snapshot):
+        """G alone on the style regression, fresh forwards at the
+        phase-1-updated parameters; then D back to ``snapshot`` (if any)
+        and the step's metrics."""
+        cfg, lw = self.cfg, self.cfg.loss
+        G, E = st.G, st.E
+        images, onehot_src, onehot_tgt = x.images, x.onehot_src, x.onehot_tgt
+        latent, cond_fake = p1["latent"], p1["cond_fake"]
+        B = images.shape[0]
+        if lw.idt_reg * lw.idt > 0:
+            if self.conditional_e:
+                # SingleGAN flavour: a random source-style identity image
+                reg_target = self._draw_batch(B, cfg.model.ndim)
+                style = reg_target
+            else:
+                # SRGAN flavour: an encoder-driven identity image
+                with torch.no_grad(), self._autocast():
+                    reg_target, logvar_s = self._E(E, images, None)
+                style = (self._sample_latent(reg_target, logvar_s)
+                         if cfg.train.encoded_feature == "latent"
+                         else reg_target)
+            with self._autocast():
+                fake2, idt2 = _g_pair(G, images, cond_fake, images,
+                                      torch.cat([onehot_src, style], 1))
+                mu_both = self._E(E, torch.cat([fake2, idt2], 0),
+                                  torch.cat([onehot_tgt, onehot_src], 0))[0]
+            errG_ex = lw.reg * L.l1_loss(latent, mu_both[:B]) \
+                + L.l1_loss(reg_target, mu_both[B:]) * lw.idt_reg \
+                * (lw.idt / lw.cycle)
+        else:
+            with self._autocast():
+                mu_t = self._E(E, G(images, cond_fake), onehot_tgt)[0]
+            errG_ex = lw.reg * L.l1_loss(latent, mu_t)
+        _apply_grads(errG_ex, st.opt_g, mesh=self.mesh)
+        if snapshot is not None:
+            # D's parameters back to the post-first-update values; Adam's
+            # moments keep all k updates (srgan_tpu/training/gan.py:506)
+            with torch.no_grad():
+                for p, v in zip(st.D.parameters(), snapshot):
+                    p.copy_(v)
+        errG_ex = errG_ex.detach()
+        metrics = dict(p1["metrics"])
+        metrics["errD"] = errD0
+        metrics["errE"] = p1["errE"]
+        metrics["errG"] = p1["errG"] + errG_ex
+        metrics["errG_ex"] = errG_ex
+        return metrics
+
+    # ---- CUDA graphs
+    def _graphable(self) -> bool:
+        """Whether ``step`` replays CUDA graphs: on one CUDA device, with
+        neither a mesh (NCCL under capture is not taken on) nor
+        ``SRGAN_TPU_FUSED_DIV=1`` (a path of its own), and with the
+        trainer's own ``_draw_latent`` (an override's draws are its
+        caller's, which a capture would fix once for every replay)."""
+        return (self.mesh is None and self.device.type == "cuda"
+                and os.environ.get("SRGAN_TPU_FUSED_DIV") != "1"
+                and type(self)._draw_latent is GANTrainer._draw_latent)
+
+    def _graphed_step(self, state: GANTrainState, batch, epoch):
+        """The step as CUDA graphs: per batch size (and compute dtype), the
+        first call runs eagerly (Adam's state, cuDNN's plans and autograd's
+        threads made outside any capture), the second captures the
+        segments (``_capture``) and every call from then on replays them
+        (``_replay``).  A state the graphs were not captured from, or whose
+        optimizers or histogram target were replaced since (a checkpoint
+        loaded into it), starts over."""
+        held = (state.G, state.D, state.E, state.hist_target) + tuple(
+            part for opt in (state.opt_g, state.opt_d, state.opt_e)
+            for part in (opt.state, opt.param_groups))
+        if self._graphs_of is None or any(
+                a is not b for a, b in zip(held, self._graphs_of)):
+            self._graphs, self._graphs_of = {}, held
+            for opt in (state.opt_g, state.opt_d, state.opt_e):
+                make_capturable(opt)
+        key = (len(batch["image"]), self.cfg.train.compute_dtype)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return self._step(state, batch, epoch)
+        if self._graphs[key] is None:
+            self._graphs[key] = self._capture(state, self._inputs(batch))
+        return self._replay(state, self._graphs[key], batch, epoch)
+
+    def _capture(self, state: GANTrainState, x: _Inputs) -> "_StepGraphs":
+        """The segments captured on static copies of the inputs ``x``, in
+        the order they replay and in one memory pool: the unrolled D update
+        (k > 1), phase 1 and phase 2.  Every tensor that crosses a segment
+        (phase 1's outputs, the first errD and D's snapshot) is held here,
+        so no segment's memory is handed to another.  No autocast region is
+        open across a segment, so autocast's cache of weight casts, which
+        it drops on leaving its outermost region, never serves a replay a
+        cast from before Adam's step: each captured cast kernel runs again
+        on every replay."""
+        k = self.cfg.train.unrolled_k
+        x = _Inputs(*(t.clone() for t in x))
+        pool = graphs.CudaGraph.pool()
+
+        def segment(fn):
+            return graphs.Segment(fn, pool, self.rng)
+
+        d = errD0 = snapshot = None
+        if k > 1:
+            d = segment(lambda: self._unrolled_d(state, x))
+            errD0 = torch.empty_like(d.out)
+            snapshot = self._snapshot(state.D)
+        p1 = segment(lambda: self._phase1(state, x, first=k == 1))
+        if k == 1:
+            errD0, snapshot = p1.out["errD"], p1.out["snapshot"]
+        p2 = segment(lambda: self._phase2(state, x, p1.out, errD0, snapshot))
+        return _StepGraphs(x, d, p1, p2, errD0, snapshot,
+                           list(state.D.parameters()))
+
+    def _replay(self, state: GANTrainState, g: "_StepGraphs", batch, epoch):
+        """One step from the graphs: the batch into their inputs, the
+        segments in their spans, and the host's part of the step (the
+        learning rates, ``state.step``); the metrics are copies, since
+        the next replay rewrites the graphs' outputs."""
+        self._set_lrs(state, epoch)
+        for static, t in zip(g.inputs, self._inputs(batch)):
+            static.copy_(t)
+        for i in range(self.cfg.train.unrolled_k - 1):
+            with spans.span("train.d_update", i=i):
+                g.d_update.replay()
+                if i == 0:
+                    # outside autograd: a copy it recorded would keep D's
+                    # gradient accumulators alive past the step, on this
+                    # stream, which a later capture then cannot wait on
+                    with torch.no_grad():
+                        g.errD0.copy_(g.d_update.out)
+                        if g.snapshot is not None:
+                            torch._foreach_copy_(g.snapshot, g.d_params)
+        with spans.span("train.phase1"):
+            g.phase1.replay()
+        with spans.span("train.phase2"):
+            g.phase2.replay()
+        state.step += 1
+        out = g.phase2.out
+        return dict(zip(out, torch.stack(list(out.values())).unbind()))

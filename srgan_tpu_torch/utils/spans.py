@@ -2,9 +2,14 @@
 
 ``span(name, **attrs)`` times a block and ``count(name, n)`` adds to a
 counter, both at a layer boundary of the program.  They record only inside
-``recording()``; otherwise each call tests one module-level variable and
-returns (``span`` a shared no-op context): it reads no clock, makes no
+``recording()``; otherwise each call tests a module-level variable or two
+and returns (``span`` a shared no-op context): it reads no clock, makes no
 object of its own and takes no lock.
+
+Inside ``tallied()`` the counts go to the tally it yields instead, from
+every thread: work captured into a CUDA graph runs only when the graph is
+replayed, and each replay gives its tally to ``count`` again
+(``training/graphs.py``).
 
 While a recording is on, spans and counts stay in memory (the
 ``Recording`` it yields) and nothing is written.  A span's parent is the
@@ -31,8 +36,11 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 STEP = "train.step"
 
-# the recording in progress, or None; the only state a call tests when off
+# the recording in progress, or None; with ``_tally`` the only state a call
+# tests when off
 _rec: Optional["Recording"] = None
+# the counts of a capture in progress (``tallied``), or None
+_tally: Optional[Dict[str, int]] = None
 
 
 class Span(NamedTuple):
@@ -135,11 +143,30 @@ def span(name: str, **attrs):
 
 
 def count(name: str, n: int = 1):
-    """Add ``n`` to the counter ``name`` of the current step."""
+    """Add ``n`` to the counter ``name`` of the current step, or, inside
+    ``tallied()``, to its tally."""
+    tally = _tally
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + n
+        return
     rec = _rec
     if rec is None:
         return
     rec._count(name, n)
+
+
+@contextlib.contextmanager
+def tallied():
+    """Keep every count of the process in the block apart, recorded or
+    not: yields the tally (name -> n) they go to.  One at a time."""
+    global _tally
+    if _tally is not None:
+        raise RuntimeError("a tally is already on")
+    tally = _tally = {}
+    try:
+        yield tally
+    finally:
+        _tally = None
 
 
 @contextlib.contextmanager
