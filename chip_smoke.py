@@ -1666,7 +1666,8 @@ def rotating(fn, sets):
 def time_training_kernels(cfg, shapes, cgen, name, power_limit):
     """Phase 9: device time of every kernel at the shapes of one step."""
     say("== phase 9: kernel timing at the shapes of one train step, fp32 and "
-        "bf16 (CUDA events around calls queued behind a device sleep; the "
+        "bf16, and the NHWC pair at serving's batch (CUDA events around "
+        "calls queued behind a device sleep; the "
         "norms with t=0, g=1, b=0, no ReLU, so that F.instance_norm and its "
         "autograd backward compute the same functions; the timed calls "
         "take turns over copies of x and dy that hold at least "
@@ -1794,9 +1795,79 @@ def time_training_kernels(cfg, shapes, cgen, name, power_limit):
                                          power_limit=power_limit)}))
     tot.update({kn: dict(nhwc[kn], by=tot[base]["by"])
                 for base, kn in NHWC_PAIR.items()})
+    time_serving_norms(shapes, cgen, name, power_limit)
 
     tot.update(time_small_kernels(cfg, cgen))
     return tot
+
+
+# the batch of serving's one-image requests, at which phase 9 times the NHWC
+# pair beside the step's shapes
+SERVE_NORM_BATCH = 1
+
+
+def time_serving_norms(shapes, cgen, name, power_limit):
+    """Phase 9 at serving's batch: the NHWC pair alone at each norm shape
+    of G at batch SERVE_NORM_BATCH in bf16 (the Translator's forward, with
+    the backward beside it), timed as the step's shapes are, beside its
+    bound, the plain twin and ``F.instance_norm``.  Returns {kernel: ms per
+    G forward}."""
+    B = SERVE_NORM_BATCH
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms")
+    per = {kn: dict.fromkeys(keys, 0.0) for kn in NHWC_PAIR.values()}
+    for (C, H, W), n in sorted(shapes["G"].items()):
+        t = torch.zeros((B, C), device=DEV)
+        g = torch.ones((C,), device=DEV)
+        b = torch.zeros((C,), device=DEV)
+        copies = max(1, math.ceil(L2_FLUSH_BYTES / (2 * B * C * H * W * 2)))
+        sets = []
+        for _ in range(copies):
+            x, dy = (torch.randn((B, C, H, W), generator=cgen, device=DEV)
+                     .to(torch.bfloat16)
+                     .contiguous(memory_format=torch.channels_last)
+                     for _ in range(2))
+            _, mu, r = norm.cbinorm_fwd(x, t, g, b)
+            sets.append((x, dy, mu, r))
+        graphs = []
+        for x, dy, _, _ in sets:
+            xr = x.detach().requires_grad_(True)
+            graphs.append((F.instance_norm(xr, eps=1e-5), xr, dy))
+        calls = {
+            "cbinorm_fwd_nhwc": (
+                lambda x, *_: norm.cbinorm_fwd(x, t, g, b),
+                lambda x, *_: norm.cbinorm_plain(x, t, g, b),
+                lambda x, *_: F.instance_norm(x, eps=1e-5),
+                bound_ms(B, C, H, W, 2)[0]),
+            "cbinorm_bwd_nhwc": (
+                lambda x, dy, mu, r: norm.cbinorm_bwd(x, t, g, b, mu, r, dy),
+                lambda x, dy, mu, r: norm.cbinorm_bwd_plain(x, t, g, b, mu,
+                                                            r, dy),
+                None, bwd_bound_ms(B, C, H, W, 2)[0])}
+        row = dict(C=C, H=H, W=W, B=B, per_g_forward=n, card=name,
+                   power_limit=power_limit)
+        for kn, (kernel, plain, library, bnd) in calls.items():
+            pre = kn.split("_")[1]
+            row[f"{pre}_nhwc_ms_bf16"] = cuda_ms(rotating(kernel, sets))[0]
+            row[f"{pre}_nhwc_plain_ms_bf16"] = cuda_ms(rotating(plain,
+                                                                sets))[0]
+            row[f"{pre}_nhwc_library_ms_bf16"] = cuda_ms(
+                rotating(library, sets) if library else rotating(
+                    lambda y, xr, dy: torch.autograd.grad(
+                        y, xr, dy, retain_graph=True), graphs))[0]
+            row[f"{pre}_nhwc_bound_ms_bf16"] = bnd
+            for key in keys:
+                per[kn][key] += n * row[f"{pre}_nhwc_{key}_bf16"]
+        say(json.dumps({"serve_kernel_shape": row}))
+        del sets, graphs, t, g, b
+        torch.cuda.empty_cache()
+    for kn, v in per.items():
+        say(f"{kn} per G forward at batch {B}, channels-last bf16: "
+            f"{v['ms']:.4g} ms, bound {v['bound_ms']:.4g} ms, plain "
+            f"{v['plain_ms']:.4g} ms, F.instance_norm "
+            f"{v['library_ms']:.4g} ms")
+    say(json.dumps({"nhwc_kernels_serving": dict(
+        per, batch=B, card=name, power_limit=power_limit)}))
+    return per
 
 
 def small_kernel_calls(mu, gh, target):

@@ -64,39 +64,48 @@
 // and do not synchronise; they run on the stream the caller passes.
 // Measured times, beside the bound, are in PERF.md.
 //
-// Channels-last (NHWC) pair, srgan_cbinorm_fwd_nhwc and _bwd_nhwc: the same
-// two functions for x stored (B, HW, C), as cuDNN's NHWC convolutions leave
-// their outputs; they replace no TPU kernel of their own (the TPU kernels
-// above take one layout).  A plane's elements now lie C apart, so a thread
-// takes 16 bytes along C (8 bf16 or 4 fp32 channels, a "vector"): TC
-// threads side by side cover a group of TC vectors of one pixel (TC = 1, 2,
-// 4 or 8; 8 bf16 threads read a 64-channel row of 128 bytes, 2 threads a
-// whole 32-byte sector), and the block's 256 / TC rows of threads stride
-// the pixels of one sample.  Each thread holds ITEMS pixels' vectors (1,
-// 2, 4 or 8) in registers, as raw 16 bytes, so x (and dy) is read from
-// device memory once: the sums, then y or dx, come from the registers.  A
-// sample's channel group takes K blocks (1 to 16; above 8, Hopper's
-// non-portable cluster size) launched as one thread-block cluster; its
-// per-channel fp32 sums go from registers through a shuffle tree over the
-// warp's rows, a fixed tree over the block's 8 warps in shared memory, then
-// the cluster's blocks in rank order through distributed shared memory, as
-// the cta tier does.  A thread per channel of the group then computes the
-// channel's coefficients into shared memory, where every thread of that
-// channel reads them, which keeps the registers for the data.  The plan
-// (TC, ITEMS, K) is srgan_tpu_torch/ops/norm.py::nhwc_plan's and is checked
-// here; a plane above 16 blocks' registers (256 * 8 * 16 pixels) has no
-// NHWC plan, and the wrapper takes the NCHW pair for it.  The backward
-// writes the same (2, B, C) scratch and runs the same ordered batch
-// reduction for dg and db, so the bits repeat from run to run here too.
-// Both kernels take a plane's scale and shift from (mu, rstd) through one
-// function with fixed roundings, so the backward's ReLU mask is the
-// forward's bit for bit.
+// Channels-last (NHWC) pair, srgan_cbinorm_fwd_nhwc and _bwd_nhwc: the same two
+// functions for x stored (B, HW, C), as cuDNN's NHWC convolutions leave their
+// outputs; they replace no TPU kernel of their own (the TPU kernels above take
+// one layout).  Bound: bytes, as above (one read of x, and of dy, one write of
+// y or dx, at the card's 3.35 TB/s).  A plane's elements lie C apart, so a
+// thread takes 16 bytes along C (8 bf16 or 4 fp32 channels, a "vector"), and a
+// tile is one channel group of TC vectors (8 bf16 vectors make a 64-channel row
+// of 128 bytes) of one sample.  The K blocks of a thread-block cluster (1 to
+// 16) hold the tile's pixels in shared memory, each as boxes of up to 256
+// pixels that TMA copies in (tensor maps from cuTensorMapEncodeTiled; pixels
+// past HW arrive as zeros), so a sample's pixels sit in shared memory between
+// the statistics and the output, not in registers, and neither the group nor
+// the cluster is sized by the register file.  The grid is persistent: as many
+// clusters as the device holds at once (cudaOccupancyMaxActiveClusters), each
+// walking over the call's tiles.  A block is warp specialised: one producer
+// warp keeps a ring of S slots loading, box by box in the order of its tiles,
+// each slot refilled as soon as its box has been read (mbarriers count the
+// copies in and the readers out); 8 consumer warps sum a tile's boxes as they
+// arrive, exchange the sums with the cluster, compute the coefficients and
+// write y or dx from the same shared memory.  The per-channel fp32 sums go
+// through a shuffle tree over the warp's rows, a fixed tree over the block's 8
+// warps, then the cluster's blocks in rank order: each block writes its totals
+// into every block's shared memory and arrives on an mbarrier there, so the
+// cluster waits for no more than the sums.  The plan (TC, rows, boxes, K, S) is
+// srgan_tpu_torch/ops/norm.py::nhwc_plan's, chosen from (B, HW, C, the element
+// size) and checked here; a shape whose ring does not fit a block has no NHWC
+// plan, and the wrapper takes the NCHW pair for it.  The backward writes the
+// same (2, B, C) scratch and runs the same ordered batch reduction for dg and
+// db, so the bits repeat from run to run here too.  Both kernels take a plane's
+// scale and shift from (mu, rstd) through one function with fixed roundings, so
+// the backward's ReLU mask is the forward's bit for bit.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
+#include <algorithm>
 #include <initializer_list>
+#include <mutex>
+#include <vector>
 
 namespace cg = cooperative_groups;
 
@@ -627,23 +636,25 @@ void launch(const void* x, const void* t, const void* g, const void* b,
 // channels-last (NHWC)
 // ---------------------------------------------------------------------------
 
-// The plan's limits; srgan_tpu_torch/ops/norm.py::nhwc_plan mirrors them
-// (threads across a group 1, 2, 4 or 8; ITEMS 1, 2, 4 or 8; clusters of up
-// to 16 blocks).
-constexpr int kNhwcMaxTc = 8;
-constexpr int kNhwcMaxItems = 8;
-constexpr int kNhwcMaxGroup = 64;    // channels of a group: 8 threads x 8 bf16
-constexpr int kNhwcMaxCluster = 16;  // Hopper's non-portable cluster limit
+// The plan's limits; srgan_tpu_torch/ops/norm.py::nhwc_plan mirrors them.
+constexpr int kNhwcMaxTc = 32;        // threads across a group
+constexpr int kNhwcMaxGroup = 256;    // channels of a group: 32 x 8 bf16
+constexpr int kNhwcMaxCluster = 16;   // Hopper's non-portable cluster limit
+constexpr int kNhwcMaxBoxRows = 256;  // pixels of one TMA box
+constexpr int kNhwcMaxSlots = 64;     // boxes of the ring
+constexpr int kNhwcSmem = 232448;     // shared memory a block may use
 
 template <typename T>
 struct VecOf;
 template <>
 struct VecOf<float> {
   static constexpr int kV = 4;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
 template <>
 struct VecOf<__nv_bfloat16> {
   static constexpr int kV = 8;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 };
 
 // 16 raw bytes as kV fp32 values, and back.
@@ -677,12 +688,17 @@ __device__ __forceinline__ uint4 pack<float>(const float* v) {
                     __float_as_uint(v[2]), __float_as_uint(v[3]));
 }
 
+// Two fp32 values rounded to nearest bf16 in one conversion, the lower
+// address holding the first: the bits of bf16_bits(lo) | bf16_bits(hi) << 16.
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
 template <>
 __device__ __forceinline__ uint4 pack<__nv_bfloat16>(const float* v) {
-  return make_uint4(bf16_bits(v[0]) | (bf16_bits(v[1]) << 16),
-                    bf16_bits(v[2]) | (bf16_bits(v[3]) << 16),
-                    bf16_bits(v[4]) | (bf16_bits(v[5]) << 16),
-                    bf16_bits(v[6]) | (bf16_bits(v[7]) << 16));
+  return make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]),
+                    bf16x2_bits(v[4], v[5]), bf16x2_bits(v[6], v[7]));
 }
 
 // A plane's y = x * scale + shift from its statistics, every rounding
@@ -694,84 +710,7 @@ __device__ __forceinline__ void nhwc_coef(float m, float r, float gc,
   shift = __fadd_rn(__fmul_rn(__fsub_rn(tb, __fmul_rn(m, r)), gc), bc);
 }
 
-// Where a thread of an NHWC launch sits.  Block b of the grid is rank
-// b % K of the cluster b / K, which is channel group (b / K) % groups of
-// sample (b / K) / groups.  Thread i covers vector cv = i % TC of the group
-// and pixels p0, p0 + rows, ..., with rows = 256 / TC.
-struct NhwcPlace {
-  int smp;      // sample
-  int g0;       // first channel of the group
-  int c0;       // first of the thread's channels
-  int p0;       // first of its pixels
-  int rows;     // rows of threads in the block, the pixels' stride
-  int rank;     // block rank in the cluster
-  int cv;       // vector within the group
-  int tc;       // threads across the group
-  int cb;       // channels in the group
-  size_t base;  // element offset of (smp, pixel 0, c0)
-};
-
-template <int V>
-__device__ __forceinline__ NhwcPlace nhwc_place(int C, int HW, int tc_log2,
-                                                int items, int K) {
-  NhwcPlace q;
-  q.tc = 1 << tc_log2;
-  q.cb = q.tc * V;
-  const int groups = C / q.cb;
-  const int cluster_id = blockIdx.x / K;
-  q.rank = blockIdx.x - cluster_id * K;
-  q.smp = cluster_id / groups;
-  q.g0 = (cluster_id - q.smp * groups) * q.cb;
-  q.cv = threadIdx.x & (q.tc - 1);
-  q.rows = kThreads >> tc_log2;
-  q.c0 = q.g0 + q.cv * V;
-  q.p0 = q.rank * q.rows * items + (threadIdx.x >> tc_log2);
-  q.base = static_cast<size_t>(q.smp) * HW * C + q.c0;
-  return q;
-}
-
-// The thread's N vectors of src; pixels past HW read as 0, which adds
-// nothing to any sum.
-template <typename T, int N>
-__device__ __forceinline__ void nhwc_load(const T* __restrict__ src,
-                                          const NhwcPlace& q, int C, int HW,
-                                          uint4* r) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int p = q.p0 + q.rows * k;
-    r[k] = p < HW ? *reinterpret_cast<const uint4*>(
-                        src + q.base + static_cast<size_t>(p) * C)
-                  : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void nhwc_store(T* __restrict__ dst,
-                                           const NhwcPlace& q, int C, int p,
-                                           uint4 v) {
-  *reinterpret_cast<uint4*>(dst + q.base + static_cast<size_t>(p) * C) = v;
-}
-
-struct NhwcShared {
-  float red[kWarps][2][kNhwcMaxGroup];  // the warps' sums
-  float tot[2][kNhwcMaxGroup];          // the block's
-  float fin[2][kNhwcMaxGroup];          // the cluster's
-  // per channel of the group, channel cv * V + j at j * TC + cv, so that
-  // the TC threads side by side read adjacent entries: the forward's
-  // (scale, shift, -, -), the backward's (mu, rstd, scale, shift)
-  float4 coef[kNhwcMaxGroup];
-  float2 k12[kNhwcMaxGroup];  // backward: S1 / HW, S2 / HW
-};
-
-// Where channel ch of the group keeps its coefficients in NhwcShared.
-template <int V>
-__device__ __forceinline__ int coef_slot(int ch, int tc) {
-  return (ch % V) * tc + ch / V;
-}
-
-// The cluster barrier in two halves: a block arrives once it has read
-// the other blocks' shared memory, and waits for the others only before
-// it exits, so that no block's shared memory goes while another reads it.
+// The cluster barrier in two halves (every thread of every block arrives).
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
 }
@@ -779,267 +718,616 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-// Two per-channel sums (a, b) of the thread's V channels over the
-// sample's pixels, in a fixed order: the warp's rows by a shuffle
-// butterfly (lanes of one vector lie TC apart), the 8 warps by a fixed
-// tree in shared memory, then the cluster's K blocks in rank order through
-// distributed shared memory (all K read at once).  Returns the shared
-// memory that holds the group's totals (a's at [ch], b's at
-// [kNhwcMaxGroup + ch]), visible to the whole block, the same bits in every
-// block of the cluster.  With K > 1 the block has arrived at the cluster
-// barrier and must call cluster_wait() before it exits.
-template <int V>
-__device__ __forceinline__ const float* nhwc_sum2(float* a, float* b,
-                                                  const NhwcPlace& q,
-                                                  int tc_log2, int K,
-                                                  NhwcShared& sh) {
-  static_assert(kWarps == 8, "the tree below adds 8 warps");
-  const int tc = 1 << tc_log2;
-  for (int o = 16; o >= tc; o >>= 1) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      a[j] += __shfl_xor_sync(0xffffffffu, a[j], o);
-      b[j] += __shfl_xor_sync(0xffffffffu, b[j], o);
-    }
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) < tc) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      sh.red[warp][0][q.cv * V + j] = a[j];
-      sh.red[warp][1][q.cv * V + j] = b[j];
-    }
-  }
-  __syncthreads();
-  const int which = threadIdx.x >= q.cb;
-  const int ch = threadIdx.x - which * q.cb;
-  if (threadIdx.x < 2 * q.cb) {
-    float r[kWarps];
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) r[w] = sh.red[w][which][ch];
-    sh.tot[which][ch] = ((r[0] + r[1]) + (r[2] + r[3])) +
-                        ((r[4] + r[5]) + (r[6] + r[7]));
-  }
-  if (K == 1) {
-    __syncthreads();
-    return &sh.tot[0][0];
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  if (threadIdx.x < 2 * q.cb) {
-    float v[kNhwcMaxCluster];
-#pragma unroll
-    for (int r = 0; r < kNhwcMaxCluster; ++r) {
-      v[r] = r < K ? cluster.map_shared_rank(&sh.tot[0][0], r)
-                         [which * kNhwcMaxGroup + ch]
-                   : 0.f;
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < kNhwcMaxCluster; ++r) s += v[r];
-    sh.fin[which][ch] = s;
-  }
-  __syncthreads();
-  cluster_arrive();
-  return &sh.fin[0][0];
+// The TMA and mbarrier instructions the kernel uses.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The initialised barriers made visible to the copy engine and the cluster.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Arrives once and expects `bytes` of copies before the phase completes.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of the (B, HW, C) tensor `map` (channels from c, pixels from p,
+// sample n) into shared memory at dst; completion is counted on bar.
+// Pixels past HW arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c, int p, int n,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c), "r"(p), "r"(n),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The TMA map's descriptor fetched ahead of its first copy.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<unsigned long long>(map))
+               : "memory");
+}
+
+// The consumer warps' own barrier (named barrier 1): the producer warp
+// takes no part.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Arrives on the barrier at bar's place in the shared memory of the
+// cluster's block `rank`, releasing this block's earlier writes to the
+// cluster.
+__device__ __forceinline__ void mbar_arrive_remote(unsigned long long* bar,
+                                                   int rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          remote)
+      : "memory");
+}
+
+// mbar_wait that also acquires what the cluster's blocks released.
+__device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar,
+                                                  unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 template <typename T>
-struct NhwcFwdArgs {
+struct NhwcArgs {
   const T* x;
+  const T* dy;   // backward
   const float* t;
   const float* g;
   const float* b;
-  T* y;
-  float* mu;    // (B, C)
-  float* rstd;  // (B, C)
+  T* out;        // y, or dx
+  float* mu;     // (B, C): written by the forward, read by the backward
+  float* rstd;   // (B, C)
+  float* dt;     // (B, C), written by the backward under affine
+  float* parts;  // (2, B, C), written by the backward under affine
+  int B;
   int C;
   int HW;
-  int tc_log2;
-  int K;
+  int tc_log2;   // threads across a group: 1, 2, 4, ... 32
+  int rows;      // pixels of a TMA box
+  int boxes;     // boxes of a tile a block holds
+  int K;         // blocks of a cluster, which together hold a tile
+  int S;         // slots of the ring, each a box of x (and one of dy)
+  int relu;
+  int affine;
   float eps;
 };
 
-template <typename T, int N, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-cbinorm_fwd_nhwc_kernel(const NhwcFwdArgs<T> a) {
+// Bytes of a block's bookkeeping past its ring, for a group of cb channels,
+// a cluster of K and S slots (NhwcBook's arrays).
+long nhwc_book_bytes(int cb, int K, int S) {
+  return (88L + 16L * K) * cb + 16L * S + 16;
+}
+
+// A block's bookkeeping in shared memory past its ring.
+struct NhwcBook {
+  float4* coef;               // [cb] per channel of the group
+  float2* k12;                // [cb] backward: S1 / HW, S2 / HW
+  float* red;                 // [8][2][cb] the warps' sums
+  float* recv;                // [2][K][2][cb] the cluster's, by tile parity
+  unsigned long long* full;   // [S] a slot's copies arrived
+  unsigned long long* empty;  // [S] a slot's box read by the 8 warps
+  unsigned long long* xchg;   // [2] the K blocks' sums arrived, by parity
+  __device__ NhwcBook(unsigned char* p, int cb, int K, int S)
+      : coef(reinterpret_cast<float4*>(p)),
+        k12(reinterpret_cast<float2*>(p + 16 * cb)),
+        red(reinterpret_cast<float*>(p + 24 * cb)),
+        recv(reinterpret_cast<float*>(p + 88 * cb)),
+        full(reinterpret_cast<unsigned long long*>(p + (88 + 16 * K) * cb)),
+        empty(full + S),
+        xchg(empty + S) {}
+};
+
+// Two per-channel sums (a, b) of the thread's V channels over the tile's
+// pixels, in a fixed order: the warp's rows by a shuffle butterfly (lanes of
+// one vector lie TC apart), the 8 warps by a fixed tree in shared memory,
+// then the cluster's K blocks in rank order.  Consumer thread ch < TC * V
+// ends with channel ch's totals in (ta, tb), the same bits in every block of
+// the cluster.  Every consumer thread calls it, for the block's j-th tile.
+// With K > 1 each block writes its totals into every block's bk.recv (half
+// j % 2, row of its rank) through distributed shared memory and arrives on
+// that block's bk.xchg[j % 2]; a block reads its rows once K have arrived.
+// A block writes half h for tile j + 2 only after every block's tile j + 1
+// sums reached it, which each sent after reading tile j's half h.
+template <int V>
+__device__ __forceinline__ void nhwc_total(float* a, float* b, int tc,
+                                           int cv, int K, int rank, int j,
+                                           const NhwcBook& bk, float& ta,
+                                           float& tb) {
+  static_assert(kWarps == 8, "the tree below adds 8 warps");
+  for (int o = 16; o >= tc; o >>= 1) {
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      a[q] += __shfl_xor_sync(0xffffffffu, a[q], o);
+      b[q] += __shfl_xor_sync(0xffffffffu, b[q], o);
+    }
+  }
+  const int warp = threadIdx.x >> 5;
+  const int cb = tc * V;
+  if ((threadIdx.x & 31) < tc) {
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      bk.red[2 * warp * cb + cv * V + q] = a[q];
+      bk.red[(2 * warp + 1) * cb + cv * V + q] = b[q];
+    }
+  }
+  consumers_sync();
+  const int ch = threadIdx.x;
+  const bool owner = ch < cb;
+  if (owner) {
+    float r[kWarps], q[kWarps];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      r[w] = bk.red[2 * w * cb + ch];
+      q[w] = bk.red[(2 * w + 1) * cb + ch];
+    }
+    ta = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]));
+    tb = ((q[0] + q[1]) + (q[2] + q[3])) + ((q[4] + q[5]) + (q[6] + q[7]));
+  }
+  if (K == 1) return;
+  if (j == 0) cluster_wait();  // every block of the cluster has started
+  const int half = j & 1;
+  float* mine = bk.recv + (half * K + rank) * 2 * cb;
+  if (owner) {
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int r = 0; r < K; ++r) {
+      float* dst = cluster.map_shared_rank(mine, r);
+      dst[ch] = ta;
+      dst[cb + ch] = tb;
+    }
+    asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  }
+  consumers_sync();
+  if (threadIdx.x < K) mbar_arrive_remote(&bk.xchg[half], threadIdx.x);
+  if (owner) {
+    mbar_wait_cluster(&bk.xchg[half], static_cast<unsigned>((j >> 1) & 1));
+    const float* rows = bk.recv + half * K * 2 * cb;
+    ta = 0.f;
+    tb = 0.f;
+    for (int r = 0; r < K; ++r) {
+      ta += rows[r * 2 * cb + ch];
+      tb += rows[r * 2 * cb + cb + ch];
+    }
+  }
+}
+
+// dy masked by the forward's y > 0 under ReLU (y recomputed from the
+// plane's scale and shift).
+__device__ __forceinline__ float masked(float d, float x, float scale,
+                                        float shift, int relu) {
+  return relu && !(fmaf(x, scale, shift) > 0.f) ? 0.f : d;
+}
+
+// The NHWC forward (kBwd false) or backward (true), persistent and warp
+// specialised.  A tile is one channel group of TC vectors (TC * V channels)
+// of one sample; the K blocks of a cluster hold its pixels, block rank q
+// pixels [q * P, q * P + P) with P = rows * boxes, as `boxes` TMA boxes of
+// x (and of dy).  Cluster i takes tiles i, i + n, i + 2n, ... of the call
+// (n clusters in the grid).  A block's ring has S >= boxes + 1 slots of one
+// box each: its producer warp loads the boxes of its tiles in order, each
+// into the next slot as soon as the 8 consumer warps have read the box
+// before it there; the consumers sum a tile's boxes as they arrive,
+// exchange the sums with the cluster, compute the coefficients, and write
+// y (or dx) box by box, freeing each slot as they leave it.  So every slot
+// that does not hold the tile in hand holds a load in flight.
+template <typename T, bool kBwd>
+__device__ __forceinline__ void nhwc_body(const CUtensorMap& mx,
+                                          const CUtensorMap& mdy,
+                                          const NhwcArgs<T>& a) {
   constexpr int V = VecOf<T>::kV;
-  __shared__ NhwcShared sh;
-  const NhwcPlace q = nhwc_place<V>(a.C, a.HW, a.tc_log2, N, a.K);
-  uint4 xs[N];
-  nhwc_load<T, N>(a.x, q, a.C, a.HW, xs);
-  float s[V], ss[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    s[j] = 0.f;
-    ss[j] = 0.f;
+  extern __shared__ unsigned char dsmem[];
+  unsigned char* ring = dsmem + ((128u - (smem_addr(dsmem) & 127u)) & 127u);
+  const int tc = 1 << a.tc_log2;
+  const int cb = tc * V;
+  const int groups = a.C / cb;
+  const int tiles = a.B * groups;
+  const int rows = a.rows;
+  const int box_bytes = rows * tc * 16;
+  const int slot_bytes = kBwd ? 2 * box_bytes : box_bytes;
+  const int K = a.K;
+  const NhwcBook bk(ring + a.S * slot_bytes, cb, K, a.S);
+  const int rank = blockIdx.x % K;
+  const int cid = blockIdx.x / K;
+  const int ncl = gridDim.x / K;
+  const int first = rank * rows * a.boxes;  // the block's first pixel
+  const int nv = min(rows * a.boxes, a.HW - first);  // >= 1 by the plan
+
+  if (threadIdx.x == kThreads) {
+    prefetch_map(&mx);
+    if (kBwd) prefetch_map(&mdy);
   }
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    float v[V];
-    unpack<T>(xs[k], v);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      s[j] += v[j];
-      ss[j] = fmaf(v[j], v[j], ss[j]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.S; ++s) {
+      mbar_init(&bk.full[s], 1);
+      mbar_init(&bk.empty[s], kWarps);
     }
-  }
-  const float* tot = nhwc_sum2<V>(s, ss, q, a.tc_log2, a.K, sh);
-  // a thread per channel of the group: its statistics, scale and shift
-  if (threadIdx.x < q.cb) {
-    const int ch = threadIdx.x;
-    const int c = q.g0 + ch;
-    const int plane = q.smp * a.C + c;
-    const float n = static_cast<float>(a.HW);
-    const float m = tot[ch] / n;
-    const float r =
-        rsqrtf(fmaxf(tot[kNhwcMaxGroup + ch] / n - m * m, 0.f) + a.eps);
-    float scale, shift;
-    nhwc_coef(m, r, a.g[c], a.t[plane], a.b[c], scale, shift);
-    sh.coef[coef_slot<V>(ch, q.tc)] = make_float4(scale, shift, 0.f, 0.f);
-    if (q.rank == 0) {
-      a.mu[plane] = m;
-      a.rstd[plane] = r;
-    }
+    mbar_init(&bk.xchg[0], K);
+    mbar_init(&bk.xchg[1], K);
+    mbar_fence_init();
   }
   __syncthreads();
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int p = q.p0 + q.rows * k;
-    if (p < a.HW) {
-      float v[V];
-      unpack<T>(xs[k], v);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float4 cf = sh.coef[j * q.tc + q.cv];
-        v[j] = fmaf(v[j], cf.x, cf.y);
-        if (kRelu) v[j] = fmaxf(v[j], 0.f);
+  // every block's barriers are ready before another block writes to it:
+  // each arrives here and waits before its first remote access
+  // (nhwc_total's, in the first tile) or, in the producer warp, before it
+  // arrives again to leave
+  if (K > 1) cluster_arrive();
+
+  if (threadIdx.x >= kThreads) {
+    // the producer warp: one lane starts every load
+    if (threadIdx.x == kThreads) {
+      int n = 0;
+      for (int tile = cid; tile < tiles; tile += ncl) {
+        const int smp = tile / groups;
+        const int g0 = (tile - smp * groups) * cb;
+        for (int i = 0; i < a.boxes; ++i, ++n) {
+          const int s = n % a.S;
+          if (n >= a.S) {
+            mbar_wait(&bk.empty[s], static_cast<unsigned>((n / a.S - 1) & 1));
+          }
+          if (i * rows >= nv) {
+            // past the sample's last pixel: an empty box
+            mbar_arrive(&bk.full[s]);
+            continue;
+          }
+          unsigned char* slot = ring + s * slot_bytes;
+          mbar_expect(&bk.full[s], static_cast<unsigned>(slot_bytes));
+          tma_load(slot, &mx, g0, first + i * rows, smp, &bk.full[s]);
+          if (kBwd) {
+            tma_load(slot + box_bytes, &mdy, g0, first + i * rows, smp,
+                     &bk.full[s]);
+          }
+        }
       }
-      nhwc_store<T>(a.y, q, a.C, p, pack<T>(v));
+    }
+  } else {
+    const int cv = threadIdx.x & (tc - 1);
+    const int prow = threadIdx.x >> a.tc_log2;
+    const int rstep = kThreads >> a.tc_log2;
+    const int lane = threadIdx.x & 31;
+    const float n = static_cast<float>(a.HW);
+    int j = 0;
+    int box0 = 0;  // the tile's first box in the block's sequence
+    for (int tile = cid; tile < tiles; tile += ncl, ++j, box0 += a.boxes) {
+      const int smp = tile / groups;
+      const int g0 = (tile - smp * groups) * cb;
+      T* out = a.out + (static_cast<size_t>(smp) * a.HW + first) * a.C + g0 +
+               cv * V;
+      float s1[V], s2[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        s1[q] = 0.f;
+        s2[q] = 0.f;
+      }
+      float cm[V], cr[V], cs[V], csh[V];
+      if (kBwd) {
+        // a thread per channel of the group: (mu, rstd, scale, shift),
+        // which need not wait for the copies
+        if (threadIdx.x < cb) {
+          const int c = g0 + threadIdx.x;
+          const int plane = smp * a.C + c;
+          const float m = a.mu[plane];
+          const float r = a.rstd[plane];
+          float scale, shift;
+          nhwc_coef(m, r, a.g[c], a.t[plane], a.b[c], scale, shift);
+          bk.coef[threadIdx.x] = make_float4(m, r, scale, shift);
+        }
+        consumers_sync();
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          const float4 cf = bk.coef[cv * V + q];
+          cm[q] = cf.x;
+          cr[q] = cf.y;
+          cs[q] = cf.z;
+          csh[q] = cf.w;
+        }
+      }
+      for (int i = 0; i < a.boxes; ++i) {
+        const int s = (box0 + i) % a.S;
+        mbar_wait(&bk.full[s], static_cast<unsigned>(((box0 + i) / a.S) & 1));
+        const T* sx = reinterpret_cast<const T*>(ring + s * slot_bytes);
+        const T* sdy =
+            reinterpret_cast<const T*>(ring + s * slot_bytes + box_bytes);
+        const int m = min(rows, nv - i * rows);
+#pragma unroll 4
+        for (int p = prow; p < m; p += rstep) {
+          float xv[V];
+          unpack<T>(*reinterpret_cast<const uint4*>(sx + p * cb + cv * V),
+                    xv);
+          if (kBwd) {
+            float dv[V];
+            unpack<T>(
+                *reinterpret_cast<const uint4*>(sdy + p * cb + cv * V), dv);
+#pragma unroll
+            for (int q = 0; q < V; ++q) {
+              const float d = masked(dv[q], xv[q], cs[q], csh[q], a.relu);
+              s1[q] += d;
+              s2[q] = fmaf(d, (xv[q] - cm[q]) * cr[q], s2[q]);
+            }
+          } else {
+#pragma unroll
+            for (int q = 0; q < V; ++q) {
+              s1[q] += xv[q];
+              s2[q] = fmaf(xv[q], xv[q], s2[q]);
+            }
+          }
+        }
+      }
+      float ta = 0.f, tb = 0.f;
+      nhwc_total<V>(s1, s2, tc, cv, K, rank, j, bk, ta, tb);
+      if (threadIdx.x < cb) {
+        const int c = g0 + threadIdx.x;
+        const int plane = smp * a.C + c;
+        if (kBwd) {
+          if (a.affine && rank == 0) {
+            a.dt[plane] = a.g[c] * ta;
+            a.parts[plane] = ta;
+            a.parts[a.B * a.C + plane] = tb + a.t[plane] * ta;
+          }
+          const float inv_n = 1.f / n;
+          bk.k12[threadIdx.x] = make_float2(ta * inv_n, tb * inv_n);
+        } else {
+          const float m = ta / n;
+          const float r = rsqrtf(fmaxf(tb / n - m * m, 0.f) + a.eps);
+          float scale, shift;
+          nhwc_coef(m, r, a.g[c], a.t[plane], a.b[c], scale, shift);
+          bk.coef[threadIdx.x] = make_float4(scale, shift, 0.f, 0.f);
+          if (rank == 0) {
+            a.mu[plane] = m;
+            a.rstd[plane] = r;
+          }
+        }
+      }
+      consumers_sync();
+      float k1[V], k2[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        if (kBwd) {
+          const float2 kk = bk.k12[cv * V + q];
+          k1[q] = kk.x;
+          k2[q] = kk.y;
+        } else {
+          const float4 cf = bk.coef[cv * V + q];
+          cs[q] = cf.x;
+          csh[q] = cf.y;
+        }
+      }
+      for (int i = 0; i < a.boxes; ++i) {
+        const int s = (box0 + i) % a.S;
+        const T* sx = reinterpret_cast<const T*>(ring + s * slot_bytes);
+        const T* sdy =
+            reinterpret_cast<const T*>(ring + s * slot_bytes + box_bytes);
+        const int m = min(rows, nv - i * rows);
+#pragma unroll 4
+        for (int p = prow; p < m; p += rstep) {
+          float v[V];
+          unpack<T>(*reinterpret_cast<const uint4*>(sx + p * cb + cv * V),
+                    v);
+          if (kBwd) {
+            float dv[V];
+            unpack<T>(
+                *reinterpret_cast<const uint4*>(sdy + p * cb + cv * V), dv);
+#pragma unroll
+            for (int q = 0; q < V; ++q) {
+              const float d = masked(dv[q], v[q], cs[q], csh[q], a.relu);
+              const float xhat = (v[q] - cm[q]) * cr[q];
+              v[q] = cs[q] * (d - k1[q] - xhat * k2[q]);
+            }
+          } else {
+#pragma unroll
+            for (int q = 0; q < V; ++q) {
+              v[q] = fmaf(v[q], cs[q], csh[q]);
+              if (a.relu) v[q] = fmaxf(v[q], 0.f);
+            }
+          }
+          *reinterpret_cast<uint4*>(
+              out + static_cast<size_t>(i * rows + p) * a.C) = pack<T>(v);
+        }
+        // the warp is done with the slot
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bk.empty[s]);
+      }
     }
   }
-  if (a.K > 1) cluster_wait();
+  // no block leaves while another may still write its shared memory
+  if (K > 1) {
+    if (threadIdx.x >= kThreads) cluster_wait();
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
+// The two kernels, under names of their own on the device's trace: 8
+// consumer warps and one producer warp a block.
+constexpr int kNhwcThreads = kThreads + 32;
+
+template <typename T>
+__global__ void __launch_bounds__(kNhwcThreads, 2)
+cbinorm_fwd_nhwc_kernel(const __grid_constant__ CUtensorMap mx,
+                        const NhwcArgs<T> a) {
+  nhwc_body<T, false>(mx, mx, a);
 }
 
 template <typename T>
-struct NhwcBwdArgs {
-  const T* x;
-  const T* dy;
-  const float* t;
-  const float* g;
-  const float* b;
-  const float* mu;
-  const float* rstd;
-  T* dx;
-  float* dt;     // (B, C), written under affine
-  float* parts;  // (2, B, C), written under affine
-  int planes;
-  int C;
-  int HW;
-  int tc_log2;
-  int K;
-  int relu;
-  int affine;
-};
-
-// dy masked by the forward's y > 0 under ReLU (y recomputed from the
-// plane's scale and shift in cf = (mu, rstd, scale, shift)).
-__device__ __forceinline__ float masked(float d, float x, const float4& cf,
-                                       int relu) {
-  return relu && !(fmaf(x, cf.z, cf.w) > 0.f) ? 0.f : d;
+__global__ void __launch_bounds__(kNhwcThreads, 2)
+cbinorm_bwd_nhwc_kernel(const __grid_constant__ CUtensorMap mx,
+                        const __grid_constant__ CUtensorMap mdy,
+                        const NhwcArgs<T> a) {
+  nhwc_body<T, true>(mx, mdy, a);
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-cbinorm_bwd_nhwc_kernel(const NhwcBwdArgs<T> a) {
-  constexpr int V = VecOf<T>::kV;
-  __shared__ NhwcShared sh;
-  const NhwcPlace q = nhwc_place<V>(a.C, a.HW, a.tc_log2, N, a.K);
-  uint4 xs[N], ds[N];
-  nhwc_load<T, N>(a.x, q, a.C, a.HW, xs);
-  nhwc_load<T, N>(a.dy, q, a.C, a.HW, ds);
-  // a thread per channel of the group: (mu, rstd, scale, shift)
-  if (threadIdx.x < q.cb) {
-    const int ch = threadIdx.x;
-    const int c = q.g0 + ch;
-    const int plane = q.smp * a.C + c;
-    const float m = a.mu[plane];
-    const float r = a.rstd[plane];
-    float scale, shift;
-    nhwc_coef(m, r, a.g[c], a.t[plane], a.b[c], scale, shift);
-    sh.coef[coef_slot<V>(ch, q.tc)] = make_float4(m, r, scale, shift);
-  }
-  __syncthreads();
-  float s1[V], s2[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    s1[j] = 0.f;
-    s2[j] = 0.f;
-  }
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    float xv[V], dv[V];
-    unpack<T>(xs[k], xv);
-    unpack<T>(ds[k], dv);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const float4 cf = sh.coef[j * q.tc + q.cv];
-      const float d = masked(dv[j], xv[j], cf, a.relu);
-      s1[j] += d;
-      s2[j] = fmaf(d, (xv[j] - cf.x) * cf.y, s2[j]);
-    }
-  }
-  const float* tot = nhwc_sum2<V>(s1, s2, q, a.tc_log2, a.K, sh);
-  if (threadIdx.x < q.cb) {
-    const int ch = threadIdx.x;
-    const int plane = q.smp * a.C + q.g0 + ch;
-    const float S1 = tot[ch];
-    const float S2 = tot[kNhwcMaxGroup + ch];
-    if (a.affine && q.rank == 0) {
-      a.dt[plane] = a.g[q.g0 + ch] * S1;
-      a.parts[plane] = S1;
-      a.parts[a.planes + plane] = S2 + a.t[plane] * S1;
-    }
-    const float inv_n = 1.f / static_cast<float>(a.HW);
-    sh.k12[coef_slot<V>(ch, q.tc)] = make_float2(S1 * inv_n, S2 * inv_n);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int p = q.p0 + q.rows * k;
-    if (p < a.HW) {
-      float xv[V], dv[V];
-      unpack<T>(xs[k], xv);
-      unpack<T>(ds[k], dv);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float4 cf = sh.coef[j * q.tc + q.cv];
-        const float2 kk = sh.k12[j * q.tc + q.cv];
-        const float d = masked(dv[j], xv[j], cf, a.relu);
-        const float xhat = (xv[j] - cf.x) * cf.y;
-        dv[j] = cf.z * (d - kk.x - xhat * kk.y);
-      }
-      nhwc_store<T>(a.dx, q, a.C, p, pack<T>(dv));
-    }
-  }
-  if (a.K > 1) cluster_wait();
+// cuTensorMapEncodeTiled, looked up in the libcuda.so.1 that the process
+// has loaded (this library links only the CUDA runtime).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* h = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (!h) h = dlopen("libcuda.so.1", RTLD_LAZY);
+    return h ? reinterpret_cast<EncodeTiled>(
+                   dlsym(h, "cuTensorMapEncodeTiled"))
+             : nullptr;
+  }();
+  return fn;
 }
 
-// One launch of `kernel` over `blocks` blocks, as clusters of K; above the
-// portable 8 the kernel is first allowed a cluster of up to 16 (Hopper's
-// limit).
-template <typename Args>
-cudaError_t launch_clustered(void (*kernel)(Args), const Args& a, int blocks,
-                             int K, cudaStream_t stream) {
-  if (K > kMaxCluster) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
+// The (B, HW, C) tensor at p as a TMA map whose box is `rows` pixels of
+// `cb` channels of one sample.
+template <typename T>
+bool nhwc_map(CUtensorMap* m, const void* p, int B, int HW, int C, int cb,
+              int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dim[3] = {static_cast<cuuint64_t>(C),
+                             static_cast<cuuint64_t>(HW),
+                             static_cast<cuuint64_t>(B)};
+  const cuuint64_t stride[2] = {static_cast<cuuint64_t>(C) * sizeof(T),
+                                static_cast<cuuint64_t>(HW) * C * sizeof(T)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cb),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(m, VecOf<T>::kMap, 3, const_cast<void*>(p), dim, stride, box,
+                step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Bytes of a block's ring: S slots of a box of `rows` pixels of TC 16-byte
+// vectors, of x alone or of x and dy.
+long nhwc_ring_bytes(int tc, int rows, int S, bool bwd) {
+  return static_cast<long>(S) * rows * tc * 16 * (bwd ? 2 : 1);
+}
+
+// The clusters of K blocks with `smem` bytes each that the device holds at
+// once for `fn`, asked of the runtime once per (kernel, device, K, smem).
+// The first ask also lets the kernel take all of a block's shared memory
+// and clusters of up to 16.
+cudaError_t max_clusters(const void* fn, int K, size_t smem, int* out) {
+  struct Entry {
+    const void* fn;
+    int dev;
+    int K;
+    size_t smem;
+    int n;
+  };
+  static std::mutex lock;
+  static std::vector<Entry> seen;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(lock);
+  for (const Entry& e : seen) {
+    if (e.fn == fn && e.dev == dev && e.K == K && e.smem == smem) {
+      *out = e.n;
+      return cudaSuccess;
+    }
   }
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kNhwcSmem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks), 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
+  cfg.gridDim = dim3(static_cast<unsigned>(K), 1, 1);
+  cfg.blockDim = dim3(kNhwcThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(out, fn, &cfg);
+  if (err == cudaSuccess) seen.push_back({fn, dev, K, smem, *out});
+  return err;
+}
+
+// One persistent launch of `kernel` on `args`: as many clusters of K blocks
+// as the device holds at once, at most one a tile.
+template <typename... Params, typename... Args>
+cudaError_t launch_persistent(void (*kernel)(Params...), int tiles, int K,
+                              size_t smem, cudaStream_t stream,
+                              const Args&... args) {
+  int clusters = 0;
+  cudaError_t err = max_clusters(reinterpret_cast<const void*>(kernel), K,
+                                 smem, &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(std::min(tiles, clusters) * K), 1,
+                     1);
+  cfg.blockDim = dim3(kNhwcThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1048,52 +1336,32 @@ cudaError_t launch_clustered(void (*kernel)(Args), const Args& a, int blocks,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = K > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, a);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-template <typename T, bool kRelu>
-cudaError_t launch_fwd_nhwc(const NhwcFwdArgs<T>& a, int blocks, int items,
-                            cudaStream_t s) {
-  switch (items) {
-    case 1:
-      return launch_clustered(cbinorm_fwd_nhwc_kernel<T, 1, kRelu>, a,
-                              blocks, a.K, s);
-    case 2:
-      return launch_clustered(cbinorm_fwd_nhwc_kernel<T, 2, kRelu>, a,
-                              blocks, a.K, s);
-    case 4:
-      return launch_clustered(cbinorm_fwd_nhwc_kernel<T, 4, kRelu>, a,
-                              blocks, a.K, s);
-    default:
-      return launch_clustered(cbinorm_fwd_nhwc_kernel<T, 8, kRelu>, a,
-                              blocks, a.K, s);
+// The forward (kBwd false) or the backward on a's tensors: the TMA maps of
+// x (and dy), then one persistent launch.
+template <typename T, bool kBwd>
+cudaError_t launch_nhwc(const NhwcArgs<T>& a, cudaStream_t stream) {
+  const int tc = 1 << a.tc_log2;
+  const int cb = tc * VecOf<T>::kV;
+  const int tiles = a.B * (a.C / cb);
+  const size_t smem = 128 + nhwc_ring_bytes(tc, a.rows, a.S, kBwd) +
+                      nhwc_book_bytes(cb, a.K, a.S);
+  CUtensorMap mx;
+  if (!nhwc_map<T>(&mx, a.x, a.B, a.HW, a.C, cb, a.rows)) {
+    return cudaErrorInvalidValue;
   }
-}
-
-template <typename T>
-cudaError_t launch_bwd_nhwc(const NhwcBwdArgs<T>& a, float* dg, float* db,
-                            int B, int blocks, int items, cudaStream_t s) {
-  cudaError_t err;
-  switch (items) {
-    case 1:
-      err = launch_clustered(cbinorm_bwd_nhwc_kernel<T, 1>, a, blocks, a.K, s);
-      break;
-    case 2:
-      err = launch_clustered(cbinorm_bwd_nhwc_kernel<T, 2>, a, blocks, a.K, s);
-      break;
-    case 4:
-      err = launch_clustered(cbinorm_bwd_nhwc_kernel<T, 4>, a, blocks, a.K, s);
-      break;
-    default:
-      err = launch_clustered(cbinorm_bwd_nhwc_kernel<T, 8>, a, blocks, a.K, s);
+  if (!kBwd) {
+    return launch_persistent(cbinorm_fwd_nhwc_kernel<T>, tiles, a.K, smem,
+                             stream, mx, a);
   }
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err == cudaSuccess && a.affine) {
-    cbinorm_bwd_param_kernel<<<(a.C + kWarps - 1) / kWarps, kThreads, 0,
-                               s>>>(a.parts, dg, db, B, a.C);
-    err = cudaGetLastError();
+  CUtensorMap mdy;
+  if (!nhwc_map<T>(&mdy, a.dy, a.B, a.HW, a.C, cb, a.rows)) {
+    return cudaErrorInvalidValue;
   }
-  return err;
+  return launch_persistent(cbinorm_bwd_nhwc_kernel<T>, tiles, a.K, smem,
+                           stream, mx, mdy, a);
 }
 
 int log2_of(int v) {
@@ -1102,23 +1370,28 @@ int log2_of(int v) {
   return k;
 }
 
-// Whether (tc, items, K) is an NHWC plan for (B, HW, C) of `size`-byte
-// elements at these addresses: whole 16-byte vectors along C, every
-// pointer 16-byte aligned, and K blocks of 256 / tc * items pixels that
-// the sample's HW pixels need all of.
-bool nhwc_plan_ok(int C, int HW, int size, int tc, int items, int K,
+// Whether (tc, rows, boxes, K, S) is an NHWC plan for (B, HW, C) of
+// `size`-byte elements at these addresses: whole 16-byte vectors along C,
+// every pointer 16-byte aligned, boxes of a multiple of 8 pixels, K blocks
+// of rows * boxes pixels that the sample's HW pixels need all of, and a ring
+// of S > boxes slots (a tile's boxes and at least one box loading) that fits
+// a block's shared memory with its bookkeeping.
+bool nhwc_plan_ok(int C, int HW, int size, int tc, int rows, int boxes,
+                  int K, int S, bool bwd,
                   std::initializer_list<const void*> ptrs) {
   const int V = 16 / size;
-  if (tc != 1 && tc != 2 && tc != 4 && tc != kNhwcMaxTc) return false;
-  if (items != 1 && items != 2 && items != 4 && items != kNhwcMaxItems) {
+  if (tc < 1 || tc > kNhwcMaxTc || (tc & (tc - 1)) != 0) return false;
+  if (C % (tc * V) != 0 || tc * V > kNhwcMaxGroup) return false;
+  if (rows < 8 || rows > kNhwcMaxBoxRows || rows % 8 != 0 || boxes < 1 ||
+      K < 1 || K > kNhwcMaxCluster || S <= boxes || S > kNhwcMaxSlots) {
     return false;
   }
-  if (K < 1 || K > kNhwcMaxCluster || C % (tc * V) != 0 ||
-      tc * V > kNhwcMaxGroup) {
+  const long P = static_cast<long>(rows) * boxes;
+  if (HW > K * P || HW <= (K - 1) * P) return false;
+  if (128 + nhwc_ring_bytes(tc, rows, S, bwd) +
+          nhwc_book_bytes(tc * V, K, S) > kNhwcSmem) {
     return false;
   }
-  const long cap = static_cast<long>(kThreads / tc) * items;
-  if (HW > K * cap || HW <= (K - 1) * cap) return false;
   size_t bits = 0;
   for (const void* p : ptrs) bits |= reinterpret_cast<size_t>(p);
   return bits % 16 == 0;
@@ -1197,22 +1470,24 @@ extern "C" int srgan_cbinorm_bwd(const void* x, const void* dy,
 
 // C entry point of the channels-last forward, bound with ctypes.  x, y:
 // (B, HW, C) in dtype (0 = float32, 1 = bfloat16); t, mu, rstd: (B, C)
-// fp32; g, b: (C,) fp32.  The plan (tc, items, cluster) is
-// srgan_tpu_torch/ops/norm.py::nhwc_plan's; one that does not fit the shape
-// or the addresses is refused.  Returns the launch's cudaError_t.
+// fp32; g, b: (C,) fp32.  The plan (tc, rows, boxes, cluster, stages) is
+// srgan_tpu_torch/ops/norm.py::nhwc_plan's; one that does not fit the shape,
+// the addresses or a block's shared memory is refused.  Returns the launch's
+// cudaError_t.
 extern "C" int srgan_cbinorm_fwd_nhwc(const void* x, const void* t,
                                       const void* g, const void* b, void* y,
                                       void* mu, void* rstd, int B, int C,
                                       int HW, float eps, int relu, int dtype,
-                                      int tc, int items, int cluster,
+                                      int tc, int rows, int boxes,
+                                      int cluster, int stages,
                                       void* stream) {
   const int size = dtype == 0 ? 4 : 2;
   if (B <= 0 || C <= 0 || HW <= 0 || (dtype != 0 && dtype != 1) ||
-      !nhwc_plan_ok(C, HW, size, tc, items, cluster, {x, y})) {
+      !nhwc_plan_ok(C, HW, size, tc, rows, boxes, cluster, stages, false,
+                    {x, y})) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = B * (C / (tc * (16 / size))) * cluster;
   const float* tf = static_cast<const float*>(t);
   const float* gf = static_cast<const float*>(g);
   const float* bf = static_cast<const float*>(b);
@@ -1220,18 +1495,17 @@ extern "C" int srgan_cbinorm_fwd_nhwc(const void* x, const void* t,
   float* rf = static_cast<float*>(rstd);
   cudaError_t err;
   if (dtype == 0) {
-    const NhwcFwdArgs<float> a{static_cast<const float*>(x), tf, gf, bf,
-                               static_cast<float*>(y), mf, rf, C, HW,
-                               log2_of(tc), cluster, eps};
-    err = relu ? launch_fwd_nhwc<float, true>(a, blocks, items, s)
-               : launch_fwd_nhwc<float, false>(a, blocks, items, s);
+    const NhwcArgs<float> a{static_cast<const float*>(x), nullptr, tf, gf, bf,
+                            static_cast<float*>(y), mf, rf, nullptr, nullptr,
+                            B, C, HW, log2_of(tc), rows, boxes, cluster,
+                            stages, relu, 0, eps};
+    err = launch_nhwc<float, false>(a, s);
   } else {
-    const NhwcFwdArgs<__nv_bfloat16> a{
-        static_cast<const __nv_bfloat16*>(x), tf, gf, bf,
-        static_cast<__nv_bfloat16*>(y), mf, rf, C, HW, log2_of(tc), cluster,
-        eps};
-    err = relu ? launch_fwd_nhwc<__nv_bfloat16, true>(a, blocks, items, s)
-               : launch_fwd_nhwc<__nv_bfloat16, false>(a, blocks, items, s);
+    const NhwcArgs<__nv_bfloat16> a{
+        static_cast<const __nv_bfloat16*>(x), nullptr, tf, gf, bf,
+        static_cast<__nv_bfloat16*>(y), mf, rf, nullptr, nullptr, B, C, HW,
+        log2_of(tc), rows, boxes, cluster, stages, relu, 0, eps};
+    err = launch_nhwc<__nv_bfloat16, false>(a, s);
   }
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
@@ -1239,49 +1513,55 @@ extern "C" int srgan_cbinorm_fwd_nhwc(const void* x, const void* t,
 
 // C entry point of the channels-last backward, bound with ctypes.  x, dy,
 // dx: (B, HW, C) in dtype; t, mu, rstd, dt: (B, C) fp32; parts: (2, B, C)
-// fp32 scratch; g, b, dg, db: (C,) fp32.  The plan is nhwc_plan's, as for
-// the forward.  With affine = 0 only dx is written, and dt, parts, dg and
-// db may be null.  Launches one grid, and under affine the NCHW pair's
-// ordered batch reduction for dg and db; returns the cudaError_t.
+// fp32 scratch; g, b, dg, db: (C,) fp32.  The plan is nhwc_plan's for two
+// staged tensors, checked as for the forward.  With affine = 0 only dx is
+// written, and dt, parts, dg and db may be null.  Launches one grid, and
+// under affine the NCHW pair's ordered batch reduction for dg and db;
+// returns the cudaError_t.
 extern "C" int srgan_cbinorm_bwd_nhwc(const void* x, const void* dy,
                                       const void* t, const void* g,
                                       const void* b, const void* mu,
                                       const void* rstd, void* dx, void* dt,
                                       void* parts, void* dg, void* db, int B,
                                       int C, int HW, int relu, int affine,
-                                      int dtype, int tc, int items,
-                                      int cluster, void* stream) {
+                                      int dtype, int tc, int rows, int boxes,
+                                      int cluster, int stages, void* stream) {
   const int size = dtype == 0 ? 4 : 2;
   if (B <= 0 || C <= 0 || HW <= 0 || (dtype != 0 && dtype != 1) ||
-      !nhwc_plan_ok(C, HW, size, tc, items, cluster, {x, dy, dx}) ||
+      !nhwc_plan_ok(C, HW, size, tc, rows, boxes, cluster, stages, true,
+                    {x, dy, dx}) ||
       (affine && (!dt || !parts || !dg || !db))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = B * (C / (tc * (16 / size))) * cluster;
   const float* tf = static_cast<const float*>(t);
   const float* gf = static_cast<const float*>(g);
   const float* bf = static_cast<const float*>(b);
-  const float* mf = static_cast<const float*>(mu);
-  const float* rf = static_cast<const float*>(rstd);
+  float* mf = const_cast<float*>(static_cast<const float*>(mu));
+  float* rf = const_cast<float*>(static_cast<const float*>(rstd));
   float* dtf = static_cast<float*>(dt);
   float* pf = static_cast<float*>(parts);
-  float* dgf = static_cast<float*>(dg);
-  float* dbf = static_cast<float*>(db);
   cudaError_t err;
   if (dtype == 0) {
-    const NhwcBwdArgs<float> a{static_cast<const float*>(x),
-                               static_cast<const float*>(dy), tf, gf, bf, mf,
-                               rf, static_cast<float*>(dx), dtf, pf, B * C,
-                               C, HW, log2_of(tc), cluster, relu, affine};
-    err = launch_bwd_nhwc(a, dgf, dbf, B, blocks, items, s);
+    const NhwcArgs<float> a{static_cast<const float*>(x),
+                            static_cast<const float*>(dy), tf, gf, bf,
+                            static_cast<float*>(dx), mf, rf, dtf, pf, B, C,
+                            HW, log2_of(tc), rows, boxes, cluster, stages,
+                            relu, affine, 0.f};
+    err = launch_nhwc<float, true>(a, s);
   } else {
-    const NhwcBwdArgs<__nv_bfloat16> a{
+    const NhwcArgs<__nv_bfloat16> a{
         static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(dy), tf, gf, bf, mf, rf,
-        static_cast<__nv_bfloat16*>(dx), dtf, pf, B * C, C, HW, log2_of(tc),
-        cluster, relu, affine};
-    err = launch_bwd_nhwc(a, dgf, dbf, B, blocks, items, s);
+        static_cast<const __nv_bfloat16*>(dy), tf, gf, bf,
+        static_cast<__nv_bfloat16*>(dx), mf, rf, dtf, pf, B, C, HW,
+        log2_of(tc), rows, boxes, cluster, stages, relu, affine, 0.f};
+    err = launch_nhwc<__nv_bfloat16, true>(a, s);
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess && affine) {
+    cbinorm_bwd_param_kernel<<<(C + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+        pf, static_cast<float*>(dg), static_cast<float*>(db), B, C);
+    err = cudaGetLastError();
   }
   return static_cast<int>(err);
 }

@@ -35,10 +35,10 @@ SIGNATURES = {
                                _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _P), _I),
         "srgan_cbinorm_fwd_nhwc": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _F, _I, _I, _I, _I, _I, _P), _I),
+                                    _F, _I, _I, _I, _I, _I, _I, _I, _P), _I),
         "srgan_cbinorm_bwd_nhwc": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _P), _I),
+                                    _I, _I, _I, _P), _I),
     },
     "histogram": {
         "srgan_soft_histogram_fwd": ((_P, _P, _I, _I, _I, _F, _F, _F, _F,

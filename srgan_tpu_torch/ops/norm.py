@@ -254,46 +254,109 @@ def _launch_bwd(x, t, g, b, mu, rstd, dy, relu: bool, affine: bool,
 
 
 # The channels-last kernels' plans (csrc/cbinorm.cu checks every plan
-# against the same constants): TC of NHWC_TC threads side by side take a
-# group of TC 16-byte vectors along C, the block's 256 / TC rows of threads
-# stride the pixels, each holding ITEMS of NHWC_ITEMS pixels' vectors, and
-# 1 to NHWC_MAX_CLUSTER blocks (a cluster) cover a sample's pixels.
+# against the same limits).  A tile is a group of TC 16-byte vectors along C
+# of one sample (TC one of NHWC_TC); the 1 to NHWC_MAX_CLUSTER blocks of a
+# cluster hold its pixels, each ``rows * boxes`` of them as TMA boxes of
+# ``rows`` pixels (a multiple of 8, at most NHWC_BOX_ROWS), in a ring of
+# more than ``boxes`` and at most NHWC_MAX_SLOTS slots of a box each, which
+# fits NHWC_SMEM bytes with the block's bookkeeping (``nhwc_smem``).  The
+# grid is persistent, as many clusters as the card holds.
 NHWC_TC = (8, 4, 2, 1)
-NHWC_ITEMS = (1, 2, 4, 8)
 NHWC_MAX_CLUSTER = 16
+NHWC_BOX_ROWS = 256
+NHWC_MAX_SLOTS = 64
+NHWC_SMEM = 232448
+# the plan's aims, not limits of the kernels: a block's share of a tile of
+# at most NHWC_TILE_BYTES (x, and dy in the backward) where one fits, two
+# boxes loading beside the tile in hand where they fit, and enough blocks
+# for the card's NHWC_SMS SMs
+NHWC_TILE_BYTES = 128 * 1024
+NHWC_LOOKAHEAD = 2
+NHWC_SMS = 132
+# a call that moves at most NHWC_SMALL_CALL bytes is bound by latency, not
+# by the memory's rate: its plan weighs a cluster's exchange (about
+# NHWC_EXCHANGE_US) against the time a block takes over its share
+# (NHWC_BLOCK_BYTES_PER_US, at half the rate for 16-byte rows)
+NHWC_SMALL_CALL = 8 << 20
+NHWC_EXCHANGE_US = 2.0
+NHWC_BLOCK_BYTES_PER_US = 50e3
 
 
-def nhwc_plan(hw: int, c: int, itemsize: int):
-    """(tc, items, cluster) of the NHWC kernels for a sample of ``hw``
-    pixels and ``c`` channels of ``itemsize`` bytes: the widest group of
-    threads along C that divides C, at least 2 where C allows (a pixel's
-    share then fills a 32-byte sector), first with clusters of at most
-    MAX_CLUSTER blocks (the portable size), else of NHWC_MAX_CLUSTER; then
-    the fewest blocks, then the fewest items a thread for that count.  None
-    where no plan holds the pixels (more than 256 * 8 * 16) or C is not a
-    whole number of vectors."""
+def nhwc_smem(plan, itemsize: int, tensors: int) -> int:
+    """Shared memory bytes a block of ``plan`` takes: its alignment, the
+    ring, and the bookkeeping (per channel of the group: coefficients, the
+    warps' sums and the cluster's; two barriers a slot and two more)."""
+    tc, rows, _, cluster, slots = plan
+    cb = tc * 16 // itemsize
+    return (128 + slots * rows * tc * 16 * tensors + (88 + 16 * cluster) * cb
+            + 16 * slots + 16)
+
+
+def nhwc_slab(hw: int, cluster: int):
+    """(rows, boxes) of each of ``cluster`` blocks that share a sample's
+    ``hw`` pixels: the fewest boxes of at most NHWC_BOX_ROWS pixels, each a
+    multiple of 8 pixels.  None where the last block would hold none."""
+    pixels = -(-hw // cluster)
+    boxes = -(-pixels // NHWC_BOX_ROWS)
+    rows = -(-pixels // (8 * boxes)) * 8
+    if (cluster - 1) * rows * boxes >= hw:
+        return None
+    return rows, boxes
+
+
+def nhwc_plan(b: int, hw: int, c: int, itemsize: int, tensors: int = 1):
+    """(tc, rows, boxes, cluster, slots) of the NHWC kernels for ``b``
+    samples of ``hw`` pixels and ``c`` channels of ``itemsize`` bytes, with
+    ``tensors`` tensors staged (1: the forward's x; 2: the backward's x and
+    dy).  First a block's share of a tile of at most NHWC_TILE_BYTES; then
+    the most blocks up to the card's SMs (a small batch spreads each sample
+    over more blocks and narrower groups), or, for a call of at most
+    NHWC_SMALL_CALL bytes, the least time estimated from a block's share
+    and a cluster's exchange; then the widest group (the longest runs of
+    bytes a pixel, for the copy engine and the memory); then the fewest
+    blocks a tile.  The ring holds the tile's boxes and NHWC_LOOKAHEAD
+    more, or one more where that is all that fits.  None where C is not a
+    whole number of vectors or no ring fits a tile and one more box."""
     vec = 16 // itemsize
-    for most, wide in ((MAX_CLUSTER, True), (NHWC_MAX_CLUSTER, True),
-                       (NHWC_MAX_CLUSTER, False)):
-        for tc in NHWC_TC:
-            if (tc > 1) != wide or c % (tc * vec):
+    small = b * hw * c * itemsize * tensors <= NHWC_SMALL_CALL
+    best = key = None
+    for tc in NHWC_TC:
+        if c % (tc * vec):
+            continue
+        tiles = b * c // (tc * vec)
+        for cluster in range(1, NHWC_MAX_CLUSTER + 1):
+            slab = nhwc_slab(hw, cluster)
+            if slab is None:
                 continue
-            rows = CTA_THREADS // tc
-            cluster = -(-hw // (rows * NHWC_ITEMS[-1]))
-            if cluster <= most:
-                items = next(i for i in NHWC_ITEMS
-                             if -(-hw // (rows * i)) == cluster)
-                return tc, items, cluster
-    return None
+            rows, boxes = slab
+            slots = next((boxes + n for n in range(NHWC_LOOKAHEAD, 0, -1)
+                          if nhwc_smem((tc, rows, boxes, cluster, boxes + n),
+                                       itemsize, tensors) <= NHWC_SMEM),
+                         None)
+            if slots is None:
+                continue
+            share = rows * boxes * tc * 16 * tensors
+            if small:
+                rounds = -(-tiles * cluster // (2 * NHWC_SMS))
+                us = (rounds * share * (2 if tc == 1 else 1)
+                      / NHWC_BLOCK_BYTES_PER_US
+                      + (NHWC_EXCHANGE_US if cluster > 1 else 0.0))
+                k = (share <= NHWC_TILE_BYTES, -us, tc, -cluster)
+            else:
+                k = (share <= NHWC_TILE_BYTES,
+                     min(tiles * cluster, NHWC_SMS), tc, -cluster)
+            if key is None or k > key:
+                best, key = (tc, rows, boxes, cluster, slots), k
+    return best
 
 
 def _nhwc_plan_for(x, *others):
-    """x's NHWC plan, or None where there is none or a tensor is not
-    16-byte aligned."""
+    """The NHWC plan of a call that stages x and ``others`` (the backward's
+    dy), or None where there is none or a tensor is not 16-byte aligned."""
     if any(v.data_ptr() % 16 for v in (x, *others)):
         return None
     B, C, H, W = x.shape
-    return nhwc_plan(H * W, C, x.element_size())
+    return nhwc_plan(B, H * W, C, x.element_size(), 1 + len(others))
 
 
 def cbinorm_fwd(x, t, g, b, eps: float = 1e-5, relu: bool = False):

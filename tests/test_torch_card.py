@@ -1,14 +1,15 @@
 """The port's card tests: the channels-last (NHWC) norm kernels against
 their plain twins (``srgan_tpu_torch/ops/norm.py``) at every shape the nets
-give them at batch 128 (G's 128^2 x 64, 64^2 x 128 and 32^2 x 256, the
-encoder's 62^2 x 64, 31^2 x 128, 15^2 x 256 and 7^2 x 512), fp32 and bf16,
-ReLU on and off, with and without affine, each call twice for the same
-bits, and the paths around them (the NCHW copy where a shape has no NHWC
-plan, the ``norm.nhwc`` counter); the channels-last pools of
-``nn/layers.py`` against CUDA's NCHW pools; and the train step replayed
-from CUDA graphs (``GANTrainer._graphed_step``) against the same trainer
-stepping eagerly.  Every test is marked ``card`` and skips without CUDA.
-On the card, from the repository's root:
+give them (G's 128^2 x 64, 64^2 x 128 and 32^2 x 256, the encoder's 62^2 x
+64, 31^2 x 128, 15^2 x 256 and 7^2 x 512) at batch 1, 32 and 128, and at
+ragged pixel counts and a C of one vector, fp32 and bf16, ReLU on and off,
+with and without affine, each call twice for the same bits, and the paths
+around them (the NCHW copy where a shape has no NHWC plan, the
+``norm.nhwc`` counter); the channels-last pools of ``nn/layers.py`` against
+CUDA's NCHW pools; and the train step replayed from CUDA graphs
+(``GANTrainer._graphed_step``) against the same trainer stepping eagerly.
+Every test is marked ``card`` and skips without CUDA.  On the card, from
+the repository's root:
 
     python -m pytest tests/test_torch_card.py -q -m card --noconftest
 
@@ -88,14 +89,12 @@ def _held(got, want, dtype) -> bool:
     return _bf16_ok(got, want)
 
 
-@pytest.mark.parametrize("relu", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_nhwc_kernels_match_plain_twin(shape, dtype, relu, dev):
-    C, H, W = shape
-    x, t, g, b, dy = _inputs(dev, BATCH, C, H, W, dtype,
-                             seed=C * H + int(relu))
+def _nhwc_against_plain(x, t, g, b, dy, dtype, relu):
+    """The NHWC pair on (x, t, g, b, dy) against the plain twins: forward,
+    backward with and without affine, every output the same bits on a
+    second call, out and dx channels-last, three ``norm.nhwc`` calls."""
     assert norm.channels_last(x)
+    assert norm._nhwc_plan_for(x) is not None
     assert norm._nhwc_plan_for(x, dy) is not None
     with spans.recording() as rec:
         y, mu, r = norm.cbinorm_fwd(x, t, g, b, 1e-5, relu)
@@ -124,8 +123,36 @@ def test_nhwc_kernels_match_plain_twin(shape, dtype, relu, dev):
         assert _rel(got, w) <= REL_TOL, (name, _rel(got, w))
 
 
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 32, BATCH])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_nhwc_kernels_match_plain_twin(shape, batch, dtype, relu, dev):
+    C, H, W = shape
+    x, t, g, b, dy = _inputs(dev, batch, C, H, W, dtype,
+                             seed=C * H + batch + int(relu))
+    _nhwc_against_plain(x, t, g, b, dy, dtype, relu)
+
+
+# (vectors of C, H, W, batch): pixel counts that fill no box or cluster
+# evenly, and groups of one vector
+RAGGED = ((1, 13, 11, 3), (3, 37, 29, 2), (1, 181, 181, 2),
+          (8, 127, 129, 2), (5, 66, 66, 5))
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vectors, H, W, batch", RAGGED)
+def test_nhwc_kernels_ragged_and_narrow(vectors, H, W, batch, dtype, relu,
+                                        dev):
+    C = vectors * 128 // torch.finfo(dtype).bits  # 16 bytes a vector
+    x, t, g, b, dy = _inputs(dev, batch, C, H, W, dtype,
+                             seed=H * W + C + int(relu))
+    _nhwc_against_plain(x, t, g, b, dy, dtype, relu)
+
+
 @pytest.mark.parametrize("what, B, C, H, W", [
-    ("above the NHWC plan's pixels", 2, 64, 192, 192),
+    ("above the NHWC plan's pixels", 2, 64, 512, 512),
     ("C not a whole number of vectors", 2, 12, 16, 16),
 ])
 def test_channels_last_without_plan_takes_nchw_kernels(what, B, C, H, W,

@@ -16,6 +16,7 @@ import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 
 import contextlib
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -188,43 +189,89 @@ def _path_shapes(cfg, monkeypatch):
     return seen
 
 
+def _plan_holds(plan, B, hw, C, itemsize, tensors):
+    """The NHWC plan's contract: whole vectors a group, boxes of a multiple
+    of 8 pixels, a cluster that covers the sample's pixels with no block
+    idle, and a ring of more slots than a tile's boxes (at least one box
+    loading while a tile is in hand) that fits the shared memory a block
+    may use with its bookkeeping.  Returns (a block's share of a tile in
+    bytes, the call's blocks a round)."""
+    tc, rows, boxes, cluster, slots = plan
+    assert tc in norm.NHWC_TC and C % (tc * 16 // itemsize) == 0
+    assert rows % 8 == 0 and 8 <= rows <= norm.NHWC_BOX_ROWS and boxes >= 1
+    assert 1 <= cluster <= norm.NHWC_MAX_CLUSTER
+    pixels = rows * boxes
+    assert (cluster - 1) * pixels < hw <= cluster * pixels
+    share = pixels * tc * 16 * tensors
+    assert boxes < slots <= norm.NHWC_MAX_SLOTS
+    assert slots * rows * tc * 16 * tensors < norm.nhwc_smem(
+        plan, itemsize, tensors) <= norm.NHWC_SMEM == 227 * 1024
+    return share, B * C // (tc * 16 // itemsize) * cluster
+
+
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_nhwc_plan_holds_every_preset_norm_shape(preset, monkeypatch):
     """Every norm shape of every preset's G and E has an NHWC plan in fp32
-    and bf16, whose cluster holds the sample's pixels with no block
-    idle."""
+    and bf16, forward and backward, at batch 1, 32, 128 and 256 (G runs at
+    twice the batch): each ring fits a block's shared memory and the
+    cluster holds the sample's pixels with no block idle.  From batch 32 the
+    blocks fill the card's SMs, and in bf16 a block's share of a tile keeps
+    to the plan's aim."""
     shapes = _path_shapes(PRESETS[preset](), monkeypatch)
     assert len(shapes) >= 6, shapes
     for C, H, W in shapes:
-        for itemsize in (4, 2):
-            plan = norm.nhwc_plan(H * W, C, itemsize)
-            assert plan is not None, (preset, C, H, W, itemsize)
-            tc, items, cluster = plan
-            assert tc in norm.NHWC_TC and items in norm.NHWC_ITEMS
-            assert C % (tc * 16 // itemsize) == 0
-            cap = norm.CTA_THREADS // tc * items
-            assert (cluster - 1) * cap < H * W <= cluster * cap
-            assert 1 <= cluster <= norm.NHWC_MAX_CLUSTER
-            assert tc > 1 or C % (2 * 16 // itemsize)
+        for itemsize, B, tensors in itertools.product((4, 2), (1, 32, 128,
+                                                               256), (1, 2)):
+            plan = norm.nhwc_plan(B, H * W, C, itemsize, tensors)
+            assert plan is not None, (preset, C, H, W, itemsize, B, tensors)
+            share, blocks = _plan_holds(plan, B, H * W, C, itemsize, tensors)
+            if B >= 32:
+                assert blocks >= norm.NHWC_SMS, (C, H, W, B, plan)
+            if itemsize == 2:
+                assert share <= norm.NHWC_TILE_BYTES, (C, H, W, plan)
 
 
+# (forward, backward) plans at batch 128
 @pytest.mark.parametrize("hw, c, itemsize, plan", [
-    (128 * 128, 64, 2, (2, 8, 16)),   # G's outer layers: a 16-block cluster
-    (64 * 64, 128, 2, (4, 8, 8)),
-    (32 * 32, 256, 2, (8, 8, 4)),     # a 64-channel row of 128 bytes
-    (62 * 62, 64, 2, (4, 8, 8)),
-    (15 * 15, 256, 2, (8, 8, 1)),
-    (7 * 7, 512, 2, (8, 2, 1)),       # the fewest items for one block
-    (128 * 128, 64, 4, (2, 8, 16)),
-    (181 * 181, 16, 2, (1, 8, 16)),   # 32,761 pixels: one vector a pixel
-    (182 * 182, 16, 2, None),         # above 16 blocks of registers
-    (256 * 256, 64, 2, None),
-    (100, 3, 2, None),                # C not a whole number of vectors
-    (100, 12, 4, (1, 1, 1)),          # 3 vectors: one thread a pixel
-    (100, 8, 2, (1, 1, 1)),
+    # G's outer layers: 16-block clusters, the forward's groups the whole
+    # 128-byte pixel; the backward's x and dy take groups half as wide
+    (128 * 128, 64, 2, ((8, 256, 4, 16, 6), (4, 256, 4, 16, 6))),
+    (64 * 64, 128, 2, ((8, 256, 4, 4, 6), (8, 256, 2, 8, 3))),
+    # the residual blocks: a block a sample and group, 128-byte rows
+    (32 * 32, 256, 2, ((8, 256, 4, 1, 6), (8, 256, 2, 2, 3))),
+    (62 * 62, 64, 2, ((8, 248, 4, 4, 6), (8, 248, 2, 8, 3))),
+    (15 * 15, 256, 2, ((8, 232, 1, 1, 3), (8, 232, 1, 1, 3))),
+    (7 * 7, 512, 2, ((8, 56, 1, 1, 3), (8, 56, 1, 1, 3))),  # one box
+    (128 * 128, 64, 4, ((8, 256, 4, 16, 6), (4, 256, 4, 16, 6))),
+    (181 * 181, 16, 2, ((2, 256, 16, 8, 18), (2, 256, 8, 16, 10))),
+    # above the register-held kernels' pixels: narrower groups, more boxes
+    (182 * 182, 16, 2, ((2, 248, 15, 9, 17), (1, 248, 15, 9, 17))),
+    (256 * 256, 64, 2, ((2, 256, 16, 16, 18), (1, 256, 16, 16, 18))),
+    (100, 3, 2, (None, None)),        # C not a whole number of vectors
+    (100, 12, 4, ((1, 104, 1, 1, 3), (1, 104, 1, 1, 3))),  # 3 vectors
+    # a call of 200 KB: one block a tile, no cluster exchange
+    (100, 8, 2, ((1, 104, 1, 1, 3), (1, 104, 1, 1, 3))),
 ])
 def test_nhwc_plan_edges(hw, c, itemsize, plan):
-    assert norm.nhwc_plan(hw, c, itemsize) == plan
+    got = tuple(norm.nhwc_plan(128, hw, c, itemsize, n) for n in (1, 2))
+    assert got == plan
+    for p, n in zip(got, (1, 2)):
+        if p is not None:
+            _plan_holds(p, 128, hw, c, itemsize, n)
+
+
+def test_nhwc_plan_weighs_latency_in_a_small_call():
+    """Serving's batch 1 moves too few bytes to be bound by the memory's
+    rate: a sample of G's outer layers is spread over a 16-block cluster
+    in rows of 32 bytes, not 16; the residual blocks' tile stays in one
+    block, with no cluster exchange; and the training batch keeps its
+    plans."""
+    assert norm.nhwc_plan(1, 128 * 128, 64, 2) == (2, 256, 4, 16, 6)
+    assert norm.nhwc_plan(1, 32 * 32, 256, 2) == (2, 256, 4, 1, 6)
+    assert norm.nhwc_plan(1, 32 * 32, 256, 2, 2) == (2, 256, 4, 1, 6)
+    for hw, c in ((128 * 128, 64), (64 * 64, 128), (32 * 32, 256)):
+        assert norm.nhwc_plan(1, hw, c, 2)[0] >= 2
+    assert norm.nhwc_plan(128, 32 * 32, 256, 2) == (8, 256, 4, 1, 6)
 
 
 def _tiny(trainer="srgan", **train):
