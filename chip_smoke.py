@@ -48,9 +48,9 @@ from the root of a checkout; no install step, no argument.  Phases:
      proposed loss stack, frozen encoder trunk, fp32): 1 eager step, 1
      that captures the step's CUDA graphs and 3 timed (replayed) steps
      with every metric printed and finite and every kernel's launches per
-     step checked against the count derived from the code (an eager
-     step's counted by the wrappers, a replayed one's on the device's
-     trace: ``Launches``); one step under torch.profiler; one step with SRGAN_TPU_FUSED_DIV=1
+     step, eager, capturing or replayed, equal to the count derived from
+     the code (the launchers' ``launch.*`` totals in ``utils/spans``);
+     one step under torch.profiler; one step with SRGAN_TPU_FUSED_DIV=1
      against the unfused one; bf16 steps, their
      launches of the NHWC norm pair checked the same way (the nets are
      channels-last on the card under bf16), one more under torch.profiler
@@ -224,6 +224,7 @@ from srgan_tpu_torch.data import (  # noqa: E402
 )
 from srgan_tpu_torch.training import gan, loop  # noqa: E402
 from srgan_tpu_torch.training.graphs import Segment  # noqa: E402
+from srgan_tpu_torch.utils import spans  # noqa: E402
 
 PRESET = "05_srgan_full"
 DEV = "cuda"
@@ -448,130 +449,17 @@ def forward_with_plain_norm(fn):
         return fn()
 
 
-def reset_counts():
-    norm.LAUNCHES = norm.BWD_LAUNCHES = 0
-    norm.NHWC_LAUNCHES = norm.NHWC_BWD_LAUNCHES = 0
-    histogram.LAUNCHES = histogram.BWD_LAUNCHES = 0
-    diversification.LAUNCHES = 0
+def counts_now():
+    """Every kernel of ``KERNELS`` by its launches in the process so far:
+    its launcher's ``launch.*`` total (``utils/spans``), which a replayed
+    CUDA graph adds to as its captured code would."""
+    totals = spans.totals()
+    return {kn: totals.get("launch." + kn, 0) for kn in KERNELS}
 
 
-def read_counts():
-    return {"cbinorm_fwd": norm.LAUNCHES, "cbinorm_bwd": norm.BWD_LAUNCHES,
-            "cbinorm_fwd_nhwc": norm.NHWC_LAUNCHES,
-            "cbinorm_bwd_nhwc": norm.NHWC_BWD_LAUNCHES,
-            "soft_histogram_fwd": histogram.LAUNCHES,
-            "soft_histogram_bwd": histogram.BWD_LAUNCHES,
-            "diversification_fwd": diversification.LAUNCHES}
-
-
-# each kernel of ``read_counts`` by its name on the device's trace
-# (csrc/*.cu): one call of a launcher runs one of them (the norm's
-# backward under affine also a ``cbinorm_bwd_param_kernel``, which counts
-# as none)
-KERNEL_NAMES = {
-    "cbinorm_fwd": re.compile(r"\bcbinorm_fwd_kernel\b"),
-    "cbinorm_bwd": re.compile(
-        r"\bcbinorm_bwd_(?:warp|cta|two_pass)_kernel\b"),
-    "cbinorm_fwd_nhwc": re.compile(r"\bcbinorm_fwd_nhwc_kernel\b"),
-    "cbinorm_bwd_nhwc": re.compile(r"\bcbinorm_bwd_nhwc_kernel\b"),
-    "soft_histogram_fwd": re.compile(r"\bsoft_histogram_fwd_kernel\b"),
-    "soft_histogram_bwd": re.compile(r"\bsoft_histogram_bwd_kernel\b"),
-    "diversification_fwd": re.compile(r"\bdiversification_fwd_kernel\b")}
-
-
-def kernel_of(name: str):
-    """The key of ``read_counts`` a device kernel's name is, or None."""
-    return next((kn for kn, rx in KERNEL_NAMES.items() if rx.search(name)),
-                None)
-
-
-# the host's wait between the trace's start or end and the device's work
-TRACE_EDGE_S = 0.05
-
-
-@contextlib.contextmanager
-def traced_counts():
-    """Yields a dict that holds, once the block is left, every kernel of
-    ``read_counts`` by its launches in the block, counted on a
-    torch.profiler trace of the device: what the device ran, launched by a
-    wrapper or by a replayed CUDA graph (whose replays call no wrapper, so
-    the module counters do not see them).  The trace can lose a record (on
-    an H100 with torch 2.11: in two of four runs of this script, once a
-    kernel of a step and once an empty kernel at an end of the window;
-    never in 150 windows of the same steps in scripts of their own), so
-    its count can read low, never high (``Launches``).  An empty kernel
-    runs just inside each end of the window."""
-    from torch.profiler import ProfilerActivity, profile
-
-    counts = dict.fromkeys(KERNEL_NAMES, 0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(TRACE_EDGE_S)
-        torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        yield counts
-        torch.cuda.synchronize()
-        torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        time.sleep(TRACE_EDGE_S)
-    kernels = 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kernels += 1
-        kn = kernel_of(e.name)
-        if kn is not None:
-            counts[kn] += 1
-    check(kernels > 0, "the profiler's trace holds no device kernel: the "
-          "launches cannot be counted")
-
-
-def calls_since(before):
-    """The wrappers' calls (``read_counts``) since ``before``."""
-    return {k: v - before[k] for k, v in read_counts().items()}
-
-
-def replays(trainer, batch) -> bool:
-    """Whether ``trainer.step`` on ``batch`` runs CUDA graphs (captures
-    them and replays them once, or replays them) rather than eagerly."""
-    key = (len(batch["image"]), trainer.cfg.train.compute_dtype)
-    return trainer._graphable() and key in trainer._graphs
-
-
-class Launches:
-    """A path's launches step by step against ``want``.  An eager step's
-    are counted by the wrappers at the launch, and equal it.  A step that
-    runs CUDA graphs calls no wrapper on a replay, so its launches are
-    counted on the device's trace, which may lose a record: each such step
-    reads at most ``want``, and the most of them, kernel by kernel, equals
-    it.  The graphs launch the same kernels on every replay, so a kernel
-    missing from them reads low on every such step, a lost record on
-    one."""
-
-    def __init__(self, what, want):
-        self.what, self.want, self.graphed = what, want, []
-
-    def step(self, counts, graphed: bool):
-        if graphed:
-            check(all(counts[k] <= n for k, n in self.want.items()),
-                  f"{self.what}: launches {counts} on the trace of a "
-                  f"replayed step, above the derived {self.want}")
-            self.graphed.append(counts)
-        else:
-            check(counts == self.want, f"{self.what}: launches {counts} "
-                  f"of an eager step, derived {self.want}")
-
-    def done(self):
-        if self.graphed:
-            most = {k: max(c[k] for c in self.graphed) for k in self.want}
-            check(most == self.want, f"{self.what}: launches of the steps "
-                  f"that ran CUDA graphs, at most {most}, derived "
-                  f"{self.want}")
-            lost = [c for c in self.graphed if c != self.want]
-            if lost:
-                say(f"{self.what}: the trace lost records of "
-                    f"{len(lost)} of {len(self.graphed)} steps that ran "
-                    f"CUDA graphs: {lost}")
+def counts_since(before):
+    """Every kernel's launches since ``counts_now()`` read ``before``."""
+    return {kn: n - before[kn] for kn, n in counts_now().items()}
 
 
 # the norm's two pairs of kernels: a path launches the NCHW pair or the
@@ -591,7 +479,7 @@ def nets_nhwc(cfg) -> bool:
 def in_layout(want, nhwc: bool):
     """``want``, launches by kernel with the norm's under the NCHW pair's
     names, as a path whose nets are channels-last (``nhwc``) or NCHW
-    launches them: every kernel of ``read_counts`` named."""
+    launches them: every kernel of ``KERNELS`` named."""
     out = dict(want)
     for kn, kn_nhwc in NHWC_PAIR.items():
         out[kn_nhwc] = out[kn] if nhwc else 0
@@ -652,7 +540,7 @@ def serve_singlegan(scfg, g_per, e_per, images, labels, chunk):
             ["--ckpt", os.path.join(run, "ckpt"), "--device", DEV,
              "--warm-batch-sizes", str(chunk)]))
     check(tr.cfg == scfg, "serve --ckpt did not find the run's config")
-    reset_counts()
+    before = counts_now()
     code, body = handle_request(tr, "/translate", encode_npz(
         images=images[:n], target_labels=labels[:n], seed=3))
     check(code == 200, body[:2000])
@@ -663,7 +551,7 @@ def serve_singlegan(scfg, g_per, e_per, images, labels, chunk):
         images=images[:n], labels=labels[:n]))
     check(code == 200, body[:2000])
     enc = decode_npz(body)
-    counts = read_counts()
+    counts = counts_since(before)
     check(counts["cbinorm_fwd"] == g_per + e_per
           and counts["cbinorm_bwd"] == 0, counts)
     code, body = handle_request(tr, "/encode",
@@ -750,9 +638,9 @@ def serving_phases(cfg, name, power_limit):
     images = rng.uniform(-1, 1, (n_max, hw, hw, m.nch_in)).astype(np.float32)
     labels = rng.integers(0, m.n_classes, n_max)
     chunk = max(WARM)
-    reset_counts()
+    start = counts_now()
     for n in TRANSLATE_N:
-        before = norm.LAUNCHES
+        before = counts_now()
         code, body = handle_request(tr, "/translate", encode_npz(
             images=images[:n], target_labels=labels[:n], seed=n))
         check(code == 200, body[:2000])
@@ -763,12 +651,12 @@ def serving_phases(cfg, name, power_limit):
         check(np.isfinite(fakes).all() and np.abs(fakes).max() <= 1.0,
               "fakes not finite or outside [-1, 1]")
         chunks = math.ceil(n / chunk)
-        got = norm.LAUNCHES - before
+        got = counts_since(before)["cbinorm_fwd"]
         check(got == g_per_fwd * chunks, (n, got))
         say(f"translate N={n}: {chunks} chunk(s), {got} launches "
             f"({g_per_fwd} per G chunk), fakes in "
             f"[{fakes.min():.3f}, {fakes.max():.3f}]")
-    before = norm.LAUNCHES
+    before = counts_now()
     code, body = handle_request(tr, "/encode",
                                 encode_npz(images=images[:ENCODE_N]))
     check(code == 200, body[:2000])
@@ -777,11 +665,11 @@ def serving_phases(cfg, name, power_limit):
           enc["mu"].shape)
     check(np.isfinite(enc["mu"]).all() and np.isfinite(enc["logvar"]).all(),
           "encoder output not finite")
-    got = norm.LAUNCHES - before
+    got = counts_since(before)["cbinorm_fwd"]
     check(got == e_per_fwd * math.ceil(ENCODE_N / chunk), got)
-    serving_launches = read_counts()
+    serving_launches = counts_since(start)
     check(serving_launches["cbinorm_bwd"] == 0, serving_launches)
-    launches = norm.LAUNCHES
+    launches = serving_launches["cbinorm_fwd"]
     say(f"encode N={ENCODE_N}: {got} launches ({e_per_fwd} per E chunk); "
         f"serving path total {launches} launches")
 
@@ -1220,10 +1108,10 @@ def check_gradient_repair(cfg, g_per, e_per):
         return torch.autograd.grad(loss, params)
 
     with deterministic_cudnn():
-        reset_counts()
+        before = counts_now()
         got = grads()
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts = counts_since(before)
         with plain_norm():
             want = grads()
         real = norm.fused_cbinorm
@@ -1345,30 +1233,23 @@ def make_batches(cfg, n, seed):
     return out
 
 
-def timed_step(trainer, state, batch, launches=None):
-    """(metrics as floats, device ms, host ms, launches) of one step; its
-    launches counted by the wrappers where it steps eagerly, on the
-    device's trace where it runs CUDA graphs (``Launches``), which
-    ``launches`` checks if given."""
-    graphed = replays(trainer, batch)
-    before = read_counts()
-    with traced_counts() if graphed \
-            else contextlib.nullcontext() as traced:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        metrics = trainer.step(state, batch)
-        end.record()
-        torch.cuda.synchronize()
-        host_ms = 1e3 * (time.perf_counter() - t0)
-    counts = traced if graphed else calls_since(before)
-    check(graphed == (trainer._graphable() and trainer._graphs.get(
-        (len(batch["image"]), trainer.cfg.train.compute_dtype)) is not None),
-        "the step ran otherwise than predicted (eager or graphed)")
-    if launches is not None:
-        launches.step(counts, graphed)
+def timed_step(trainer, state, batch, want=None):
+    """(metrics as floats, device ms, host ms, launches) of one step, eager,
+    capturing or replayed; its launches must equal ``want`` if given."""
+    before = counts_now()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    metrics = trainer.step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    counts = counts_since(before)
+    check(want is None or counts == want, f"{trainer.cfg.name} "
+          f"{trainer.cfg.train.compute_dtype} step {state.step}: launches "
+          f"{counts}, derived {want}")
     metrics = {k: float(v) for k, v in metrics.items()}
     check(all(math.isfinite(v) for v in metrics.values()),
           f"a metric is not finite: {metrics}")
@@ -1520,16 +1401,14 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     steps = []
-    checker = Launches(f"{PRESET} fp32", want)
     for i, batch in enumerate(batches):
         metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch,
-                                                      checker)
+                                                      want)
         say(f"step {i} ({STEP_KIND[min(i, 2)]}): device "
             f"{dev_ms:.1f} ms, host {host_ms:.1f} ms, launches {counts}, "
             + json.dumps(metrics))
         steps.append(dict(metrics=metrics, device_ms=dev_ms,
                           host_ms=host_ms))
-    checker.done()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     gflop = bench.count_step_flops(trainer, state, batches[-1]) / B / 1e9
     say("== phase 8a: one more fp32 step under torch.profiler")
@@ -1573,15 +1452,13 @@ def training_phase(cfg, g_per, e_per, name, power_limit):
     trainer, state = fresh(bcfg)
     torch.cuda.reset_peak_memory_stats()
     bf16 = []
-    checker = Launches(f"{PRESET} bf16", bwant)
     for batch in batches[:3]:
         metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch,
-                                                      checker)
+                                                      bwant)
         say(f"bf16 step: device {dev_ms:.1f} ms, host {host_ms:.1f} ms, "
             f"launches {counts}, " + json.dumps(metrics))
         bf16.append(dict(metrics=metrics, device_ms=dev_ms,
                          host_ms=host_ms))
-    checker.done()
     bf16_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # eager: a replayed graph's kernels have no operation above them to
     # trace a transpose to its convolution by
@@ -2021,18 +1898,12 @@ class LoopProbe:
     """Wraps the loop's device feed and the trainer's step while it is
     entered: the host seconds each ``next`` of the feed takes (the step
     waiting on its batch), CUDA events around each step, and each step's
-    launches as ``timed_step`` counts them, checked against ``want`` by a
-    ``Launches`` of each trainer (``done``); ``calls``: the wrappers'
-    calls inside the steps."""
+    launches, which must equal ``want``; ``trainers``: the trainers that
+    stepped."""
 
     def __init__(self, want):
         self.waits, self.events, self.counts = [], [], []
-        self.want, self.launches = want, []
-        self.calls = dict.fromkeys(KERNEL_NAMES, 0)
-
-    def done(self):
-        for _, checker in self.launches:
-            checker.done()
+        self.want, self.trainers = want, []
 
     def __enter__(self):
         self.feed, self.step = loop.prefetch_to_device, gan.GANTrainer.step
@@ -2049,26 +1920,17 @@ class LoopProbe:
                 yield batch
 
         def timed_step(trainer, state, batch, epoch=0):
-            graphed = replays(trainer, batch)
-            before = read_counts()
-            with traced_counts() if graphed \
-                    else contextlib.nullcontext() as traced:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                metrics = step(trainer, state, batch, epoch)
-                end.record()
-            calls = calls_since(before)
-            for k, v in calls.items():
-                self.calls[k] += v
-            launches = next((lc for t, lc in self.launches if t is trainer),
-                            None)
-            if launches is None:
-                launches = Launches(f"loop trainer {len(self.launches)}",
-                                    self.want)
-                self.launches.append((trainer, launches))
-            counts = traced if graphed else calls
-            launches.step(counts, graphed)
+            before = counts_now()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(trainer, state, batch, epoch)
+            end.record()
+            counts = counts_since(before)
+            check(counts == self.want, f"loop step {len(self.counts)}: "
+                  f"launches {counts}, derived {self.want}")
+            if not any(t is trainer for t in self.trainers):
+                self.trainers.append(trainer)
             self.counts.append(counts)
             self.events.append((start, end))
             return metrics
@@ -2129,16 +1991,15 @@ def loop_phase(cfg, g_per, e_per, bf16_img_s, name, power_limit, tmp):
                decode=decode)
     per_step = expected_counts(lcfg, g_per, e_per, fused=False)
     t0 = time.perf_counter()
-    before = read_counts()
+    before = counts_now()
     with LoopProbe(per_step) as probe:
         loop.train_gan(lcfg, out, epochs=LOOP_EPOCHS, **run)
         _, state = loop.train_gan(lcfg, out, epochs=LOOP_EPOCHS + 1,
                                   resume=True, **run)
         torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    outside = {k: v - probe.calls[k] for k, v in calls_since(before).items()}
-    probe.done()
-    counts = {k: sum(c[k] for c in probe.counts) for k in KERNEL_NAMES}
+    counts = {k: sum(c[k] for c in probe.counts) for k in KERNELS}
+    outside = {k: v - counts[k] for k, v in counts_since(before).items()}
     device_ms = probe.device_ms()
     check(os.path.exists(os.path.join(out, "config.json")),
           "no config.json")
@@ -2162,8 +2023,8 @@ def loop_phase(cfg, g_per, e_per, bf16_img_s, name, power_limit, tmp):
     except ValueError as e:
         refused = "different config" in str(e)
     check(refused, "a resume with a changed config did not refuse")
-    check(len(probe.launches) == 2 and len(probe.counts) == n_steps,
-          f"{len(probe.launches)} trainers, {len(probe.counts)} steps")
+    check(len(probe.trainers) == 2 and len(probe.counts) == n_steps,
+          f"{len(probe.trainers)} trainers, {len(probe.counts)} steps")
     check(not any(outside.values()), f"launches outside the loop's steps "
           f"{outside}")
 
@@ -2308,14 +2169,14 @@ def classifier_phase(cfg, work, decode, name, power_limit):
     torch.cuda.reset_peak_memory_stats()
     steps = []
     for i, (x, y) in enumerate(batches):
-        reset_counts()
+        before = counts_now()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         metrics = trainer.step(state, x, y, epoch=i)
         end.record()
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts = counts_since(before)
         metrics = {k: float(v) for k, v in metrics.items()}
         ms = start.elapsed_time(end)
         say(f"classifier step {i} ({'warm' if i == 0 else 'timed'}): device "
@@ -2324,9 +2185,9 @@ def classifier_phase(cfg, work, decode, name, power_limit):
         check(counts == per_step, f"launches {counts}, derived {per_step}")
         steps.append(ms)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    reset_counts()
+    before = counts_now()
     trainer.predict(state, batches[0][0])
-    per_eval = read_counts()
+    per_eval = counts_since(before)
     check(per_eval == classifier_counts(ccfg, 0, 1),
           f"launches per evaluation batch {per_eval}")
 
@@ -2389,12 +2250,12 @@ def classifier_phase(cfg, work, decode, name, power_limit):
     if not has_mpl:
         argv.append("--no-confusion-plot")
     say("python -m srgan_tpu_torch.pretrain_classifier " + " ".join(argv))
-    reset_counts()
+    before = counts_now()
     t0 = time.perf_counter()
     run_cli(pretrain_classifier.main, argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    cli_counts = read_counts()
+    cli_counts = counts_since(before)
     train_n = 4 * min(c["train_num"],
                       c["per_class"] - c["val_num"] - c["test_num"])
     n_steps = c["epochs"] * (train_n // c["batch"])
@@ -2581,10 +2442,9 @@ def count_transforms():
     real, per_call = gan.transform, []
 
     def counting(*a, **k):
-        before = read_counts()
+        before = counts_now()
         result = real(*a, **k)
-        per_call.append({key: v - before[key]
-                         for key, v in read_counts().items()})
+        per_call.append(counts_since(before))
         return result
 
     gan.transform = counting
@@ -2613,7 +2473,7 @@ def evaluation_phase(g_per, loop_out, vgg_pth, work, name, power_limit):
             "--device", DEV, "--out", pkl]
     say("python -m srgan_tpu_torch.evaluate_prdc " + " ".join(argv))
     per_call, unwrap = count_transforms()
-    reset_counts()
+    before = counts_now()
     t0 = time.perf_counter()
     try:
         run_cli(evaluate_prdc.main, argv)
@@ -2621,7 +2481,7 @@ def evaluation_phase(g_per, loop_out, vgg_pth, work, name, power_limit):
         unwrap()
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    counts = read_counts()
+    counts = counts_since(before)
     # the checkpoint's nets, bf16 (phase 10): channels-last
     per_translate = g_forward_launches(g_per, loop_out["nhwc"])
     check(len(per_call) == 16 and all(c == per_translate for c in per_call),
@@ -2793,13 +2653,12 @@ def variants_phase(g_per, e_per, name, power_limit):
             if cfg.train.unrolled_restore else None
         torch.cuda.reset_peak_memory_stats()
         steps, restore = [], []
-        checker = Launches(key, want)
         with snaps or contextlib.nullcontext():
             for i, batch in enumerate(batches):
                 if snaps is not None:
                     snaps.begin()
                 metrics, dev_ms, host_ms, counts = timed_step(
-                    trainer, state, batch, checker)
+                    trainer, state, batch, want)
                 if snaps is not None:
                     restore.append(snaps.check(i + 1))
                 steps.append(dict(metrics=metrics, device_ms=dev_ms,
@@ -2807,7 +2666,6 @@ def variants_phase(g_per, e_per, name, power_limit):
                 say(f"{key} step {i} ({STEP_KIND[min(i, 2)]}): device "
                     f"{dev_ms:.1f} ms, host {host_ms:.1f} ms, launches "
                     f"{counts}, " + json.dumps(metrics))
-        checker.done()
         # the eager step's restore, then the capturing step's and the
         # replayed steps' (the graphs' own)
         check(not restore or [r["replayed"] for r in restore]
@@ -2846,14 +2704,12 @@ def variants_phase(g_per, e_per, name, power_limit):
     want = expected_counts(bcfg, g_per, e_per)
     torch.cuda.reset_peak_memory_stats()
     bf16 = []
-    checker = Launches(f"bf16 {preset}", want)
     for batch in make_batches(bcfg, 3, seed=15):
         metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch,
-                                                      checker)
+                                                      want)
         bf16.append(dict(device_ms=dev_ms, host_ms=host_ms, metrics=metrics))
         say(f"{preset} bf16 step: device {dev_ms:.1f} ms, host "
             f"{host_ms:.1f} ms, launches {counts}, " + json.dumps(metrics))
-    checker.done()
     record[preset]["bf16"] = dict(
         warm_step_device_ms=bf16[0]["device_ms"],
         step_device_ms=bf16[2]["device_ms"],
@@ -2947,7 +2803,7 @@ def viz_phase(cfg, loop_out, probes, work, name, power_limit):
                 "--attr-file", attr_file, "--out", sweep_dir, "--device",
                 DEV] + ([] if has_mpl else ["--no-grid"])
         say("python -m srgan_tpu_torch.sample_sweep " + " ".join(argv))
-        reset_counts()
+        before = counts_now()
         t0 = time.perf_counter()
         run_cli(sample_sweep.main, argv)
         sweep_s = time.perf_counter() - t0
@@ -2970,7 +2826,7 @@ def viz_phase(cfg, loop_out, probes, work, name, power_limit):
         check(mu_err <= MODEL_TOL, f"sample_sweep's mu differ by {mu_err}")
         del trainer, state
         rec["sample_sweep"] = dict(seconds=sweep_s, files=written,
-                                   launches=read_counts())
+                                   launches=counts_since(before))
         rec["sample_sweep"]["mu_max_abs_err_vs_in_process"] = mu_err
         say(f"sample_sweep: {sweep_s:.1f} s, {written}, launches "
             f"{rec['sample_sweep']['launches']}; its mu {mu_err:.3e} from "
@@ -3056,16 +2912,14 @@ def batch_norm_phase(g_per, e_per, name, power_limit):
     before = {"G": running_stats(state.G), "E": running_stats(state.E)}
     torch.cuda.reset_peak_memory_stats()
     steps = []
-    checker = Launches("batch mode", want)
     for i, batch in enumerate(batches):
         metrics, dev_ms, host_ms, counts = timed_step(trainer, state, batch,
-                                                      checker)
+                                                      want)
         say(f"batch-norm step {i} ({STEP_KIND[min(i, 2)]}): device "
             f"{dev_ms:.1f} ms, host {host_ms:.1f} ms, launches {counts}, "
             + json.dumps(metrics))
         steps.append(dict(metrics=metrics, device_ms=dev_ms,
                           host_ms=host_ms))
-    checker.done()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = profile_step(lambda: trainer.step(state, batches[-1]))
     say_profile("one batch-mode step", prof)
@@ -3395,7 +3249,7 @@ def scripts_phase(g_per, e_per, loop_out, work, name, power_limit):
             str(ORACLE_TEST_NUM), "--device", DEV, "--out", oracle_out]
     say("python -m srgan_tpu_torch.translation_oracle " + " ".join(argv))
     per_call, unwrap = count_transforms()
-    reset_counts()
+    before = counts_now()
     t0 = time.perf_counter()
     try:
         run_cli(translation_oracle.main, argv)
@@ -3403,7 +3257,7 @@ def scripts_phase(g_per, e_per, loop_out, work, name, power_limit):
         unwrap()
     torch.cuda.synchronize()
     oracle_s = time.perf_counter() - t0
-    oracle_counts = read_counts()
+    oracle_counts = counts_since(before)
     with open(oracle_out) as f:
         summary = json.load(f)
     per_translate = g_forward_launches(g_per, loop_out["nhwc"])
@@ -3504,10 +3358,10 @@ def scripts_phase(g_per, e_per, loop_out, work, name, power_limit):
                 ",".join(map(str, SERVING_SIZES)), "--iters",
                 str(SERVING_ITERS), "--compute-dtype", dtype, "--device",
                 DEV, "--out", os.path.join(work, f"serving_{dtype}.json")]
-        reset_counts()
+        before = counts_now()
         run_cli(bench_serving.main, argv)
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts = counts_since(before)
         with open(argv[-1]) as f:
             results = json.load(f)
         check(counts == want, f"bench_serving {dtype}: launches {counts}, "
@@ -3578,12 +3432,10 @@ def bench_phase(g_per, e_per, bf16_host_ms, work, name, power_limit):
     os.environ.update(BENCH_ENV)
     out = io.StringIO()
     t0 = time.perf_counter()
+    before = counts_now()
     try:
-        # the launches on the device's trace: the bench's steps replay
-        # graphs
         with hold_chip("chip_smoke phase 19"), \
-                contextlib.redirect_stdout(out), \
-                traced_counts() as counts:
+                contextlib.redirect_stdout(out):
             returned = run_cli(bench.main, ["--all", "--arms-out", arms_out])
     finally:
         for k, v in saved.items():
@@ -3592,6 +3444,7 @@ def bench_phase(g_per, e_per, bf16_host_ms, work, name, power_limit):
             else:
                 os.environ[k] = v
     bench_s = time.perf_counter() - t0
+    counts = counts_since(before)
     say(out.getvalue().rstrip())
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     with open(arms_out) as f:

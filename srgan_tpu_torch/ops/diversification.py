@@ -5,9 +5,11 @@ Counterpart of ``srgan_tpu/ops/pallas/diversification.py``.
 ``fused_diversification`` is a ``torch.autograd.Function``: on a CUDA tensor
 its forward launches ``srgan_diversification_fwd``
 (``csrc/diversification.cu``), or raises; on a CPU tensor it computes
-``diversification_plain``.  Its backward is autograd of
-``diversification_plain`` on either device, as the TPU version's is
-(``diversification.py:124-130``): a (B, 8) op that no kernel would speed up.
+``diversification_plain``; each launch counts one
+``launch.diversification_fwd`` in ``utils/spans``.  Its backward is
+autograd of ``diversification_plain`` on either device, as the TPU
+version's is (``diversification.py:124-130``): a (B, 8) op that no kernel
+would speed up.
 
 The kernel is one launch of one thread-block cluster of ``plan(D)`` blocks,
 a warp per work item: block r takes the columns d = r, r + K, ... (their
@@ -28,10 +30,8 @@ import torch
 
 from srgan_tpu_torch.ops import histogram
 from srgan_tpu_torch.ops import losses as L
+from srgan_tpu_torch.utils import spans
 
-# kernel launches since the last reset, counted where the wrapper
-# launches (a CUDA graph's replays are not)
-LAUNCHES = 0
 # the most blocks in the kernel's cluster (csrc/diversification.cu checks
 # every plan against the same constant)
 MAX_CLUSTER = 8
@@ -62,7 +62,6 @@ def diversification_fwd(mu, target, n_batch_cfg: int, bins: int = 50,
     """The forward alone, no graph: the kernel on a CUDA mu, the plain twin
     on a CPU mu.  mu: (B, D), target: (bins,), both fp32 contiguous on one
     device -> (3,) fp32."""
-    global LAUNCHES
     if mu.dim() != 2 or mu.dtype != torch.float32 or not mu.is_contiguous():
         raise ValueError(f"fused_diversification: mu must be a contiguous "
                          f"2-D float32 tensor, got {tuple(mu.shape)} "
@@ -101,7 +100,7 @@ def diversification_fwd(mu, target, n_batch_cfg: int, bins: int = 50,
     if err != 0:
         raise RuntimeError(f"diversification kernel launch failed: "
                            f"cudaError_t {err}")
-    LAUNCHES += 1
+    spans.count("launch.diversification_fwd")
     return out
 
 

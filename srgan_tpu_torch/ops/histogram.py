@@ -7,8 +7,10 @@ its forward launches ``srgan_soft_histogram_fwd`` and its backward
 ``srgan_soft_histogram_bwd`` (``csrc/histogram.cu``), or raises; on a CPU
 tensor they compute ``soft_histogram_cols_plain`` (``gaussian_histogram``
 per column) and ``soft_histogram_cols_bwd_plain`` (its closed-form
-gradient).  The sizes are tiny ((128, 8) -> (8, 50) on the training path):
-a launch costs its latency, not its bytes.
+gradient).  Each launch counts one ``launch.soft_histogram_fwd`` or
+``launch.soft_histogram_bwd`` in ``utils/spans``.  The sizes are tiny
+((128, 8) -> (8, 50) on the training path): a launch costs its latency,
+not its bytes.
 """
 
 from __future__ import annotations
@@ -18,10 +20,7 @@ import math
 
 import torch
 
-# kernel launches since the last reset, forward and backward, counted
-# where the wrappers launch (a CUDA graph's replays are not)
-LAUNCHES = 0
-BWD_LAUNCHES = 0
+from srgan_tpu_torch.utils import spans
 
 
 def _consts(bins: int, vmin: float, vmax: float, sigma: float):
@@ -90,7 +89,6 @@ def soft_histogram_fwd(mu, bins: int = 50, vmin: float = -10.0,
                        vmax: float = 10.0, sigma: float = 0.2):
     """The forward alone, no graph: the kernel on a CUDA mu, the plain twin
     on a CPU mu.  mu: (B, D) fp32 contiguous -> (D, bins) fp32."""
-    global LAUNCHES
     _check(mu)
     if mu.device.type == "cpu":
         return soft_histogram_cols_plain(mu, bins, vmin, vmax, sigma)
@@ -106,7 +104,7 @@ def soft_histogram_fwd(mu, bins: int = 50, vmin: float = -10.0,
     if err != 0:
         raise RuntimeError(f"soft histogram kernel launch failed: "
                            f"cudaError_t {err}")
-    LAUNCHES += 1
+    spans.count("launch.soft_histogram_fwd")
     return h
 
 
@@ -114,7 +112,6 @@ def soft_histogram_bwd(mu, gh, bins: int = 50, vmin: float = -10.0,
                        vmax: float = 10.0, sigma: float = 0.2):
     """The backward alone: the kernel on a CUDA mu, the plain twin on a CPU
     mu.  gh: (D, bins), cast to fp32 contiguous -> dmu (B, D) fp32."""
-    global BWD_LAUNCHES
     _check(mu)
     gh = gh.float().contiguous()
     if tuple(gh.shape) != (mu.shape[1], bins) or gh.device != mu.device:
@@ -135,7 +132,7 @@ def soft_histogram_bwd(mu, gh, bins: int = 50, vmin: float = -10.0,
     if err != 0:
         raise RuntimeError(f"soft histogram backward kernel launch failed: "
                            f"cudaError_t {err}")
-    BWD_LAUNCHES += 1
+    spans.count("launch.soft_histogram_bwd")
     return dmu
 
 

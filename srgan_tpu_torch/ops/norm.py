@@ -13,7 +13,9 @@ the nets keep their activations on CUDA); the wrapper reads which from x's
 strides.  A channels-last CUDA x launches the NHWC pair
 (``srgan_cbinorm_fwd_nhwc``, ``srgan_cbinorm_bwd_nhwc``) and counts one
 ``norm.nhwc`` a call; an NCHW one the NCHW pair; a CPU x either way the
-plain twins.  out and dx keep x's layout.
+plain twins.  out and dx keep x's layout.  Each launch counts one
+``launch.`` and its kernel's name (``launch.cbinorm_fwd_nhwc``, ...) in
+``utils/spans``; the plain twins count none.
 """
 
 from __future__ import annotations
@@ -23,15 +25,6 @@ import ctypes
 import torch
 
 from srgan_tpu_torch.utils import spans
-
-# kernel launches since the last reset, forward and backward, of the NCHW
-# pair and of the NHWC pair, counted where the wrappers launch (a CUDA
-# graph's capture counts once, its replays not at all); set to 0 before a
-# path is driven and read afterwards
-LAUNCHES = 0
-BWD_LAUNCHES = 0
-NHWC_LAUNCHES = 0
-NHWC_BWD_LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -160,7 +153,6 @@ def _launch(x, t, g, b, eps: float, relu: bool, nhwc=None):
     layout."""
     from srgan_tpu_torch.ops.build import load
 
-    global LAUNCHES, NHWC_LAUNCHES
     B, C, H, W = x.shape
     out = torch.empty_like(x)
     mu = torch.empty((B, C), dtype=torch.float32, device=x.device)
@@ -177,10 +169,8 @@ def _launch(x, t, g, b, eps: float, relu: bool, nhwc=None):
                  _DTYPE_CODE[x.dtype], *plan, _stream(x))
     if err != 0:
         raise RuntimeError(f"cbinorm kernel launch failed: cudaError_t {err}")
-    if nhwc is None:
-        LAUNCHES += 1
-    else:
-        NHWC_LAUNCHES += 1
+    spans.count("launch.cbinorm_fwd" if nhwc is None
+                 else "launch.cbinorm_fwd_nhwc")
     return out, mu, rstd
 
 
@@ -221,7 +211,6 @@ def _launch_bwd(x, t, g, b, mu, rstd, dy, relu: bool, affine: bool,
     dt, dg and db are None."""
     from srgan_tpu_torch.ops.build import load
 
-    global BWD_LAUNCHES, NHWC_BWD_LAUNCHES
     B, C, H, W = x.shape
     dx = torch.empty_like(x)
     dt = parts = dg = db = None
@@ -246,10 +235,8 @@ def _launch_bwd(x, t, g, b, mu, rstd, dy, relu: bool, affine: bool,
     if err != 0:
         raise RuntimeError(f"cbinorm backward kernel launch failed: "
                            f"cudaError_t {err}")
-    if nhwc is None:
-        BWD_LAUNCHES += 1
-    else:
-        NHWC_BWD_LAUNCHES += 1
+    spans.count("launch.cbinorm_bwd" if nhwc is None
+                 else "launch.cbinorm_bwd_nhwc")
     return dx, dt, dg, db
 
 

@@ -4,11 +4,10 @@ device).
 A ``Segment`` is one captured part of the step: its graph, the tensors the
 captured code returned (each replay rewrites them in place), and the counts
 that code gave ``spans.count`` (``spans.tallied``), which each replay gives
-again, since a replay runs none of the code: the recording's counters of a
-replayed step are an eager step's.  The kernels' own module counters
-(``ops/norm.py``'s ``LAUNCHES`` and the like) count the calls of their
-launchers, so a capture's once and a replay's not at all; a replayed
-step's kernels are counted on the device's trace.
+again, since a replay runs none of the code.  The capture adds nothing to
+the counts, so the counters of a replayed step, the kernels' launches
+(``launch.*``) among them, are an eager step's, in the totals and in a
+recording alike.
 
 ``CudaGraph`` is the one place the CUDA graph API is called, and the seam
 the CPU tests stand in for.

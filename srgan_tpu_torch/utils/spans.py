@@ -1,15 +1,19 @@
 """The program's spans and counters: the one tracing module of the port.
 
 ``span(name, **attrs)`` times a block and ``count(name, n)`` adds to a
-counter, both at a layer boundary of the program.  They record only inside
-``recording()``; otherwise each call tests a module-level variable or two
-and returns (``span`` a shared no-op context): it reads no clock, makes no
-object of its own and takes no lock.
+counter, both at a layer boundary of the program.  Spans record only
+inside ``recording()``; otherwise ``span`` tests a module-level variable
+and returns a shared no-op context: it reads no clock and makes no object
+of its own.  Counts always go to the process's totals (``totals()``, under
+a lock, from every thread), and inside ``recording()`` also to the
+recording.  The kernels' launchers count each launch there, as
+``launch.<kernel>``: the port's one count of its kernel launches.
 
-Inside ``tallied()`` the counts go to the tally it yields instead, from
-every thread: work captured into a CUDA graph runs only when the graph is
+Inside ``tallied()`` the counts go to the tally it yields instead, and to
+neither: work captured into a CUDA graph runs only when the graph is
 replayed, and each replay gives its tally to ``count`` again
-(``training/graphs.py``).
+(``training/graphs.py``), so the totals of a replayed step are an eager
+step's.
 
 While a recording is on, spans and counts stay in memory (the
 ``Recording`` it yields) and nothing is written.  A span's parent is the
@@ -36,11 +40,14 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 STEP = "train.step"
 
-# the recording in progress, or None; with ``_tally`` the only state a call
-# tests when off
+# the recording in progress, or None; with ``_tally`` the only state
+# ``span`` tests when off
 _rec: Optional["Recording"] = None
 # the counts of a capture in progress (``tallied``), or None
 _tally: Optional[Dict[str, int]] = None
+# every count of the process outside a tally, by name (``totals``)
+_totals: Dict[str, int] = {}
+_totals_lock = threading.Lock()
 
 
 class Span(NamedTuple):
@@ -143,16 +150,25 @@ def span(name: str, **attrs):
 
 
 def count(name: str, n: int = 1):
-    """Add ``n`` to the counter ``name`` of the current step, or, inside
-    ``tallied()``, to its tally."""
+    """Add ``n`` to the counter ``name``: to the totals and, while a
+    recording is on, to its current step; inside ``tallied()`` to the
+    tally alone."""
     tally = _tally
     if tally is not None:
         tally[name] = tally.get(name, 0) + n
         return
+    with _totals_lock:
+        _totals[name] = _totals.get(name, 0) + n
     rec = _rec
-    if rec is None:
-        return
-    rec._count(name, n)
+    if rec is not None:
+        rec._count(name, n)
+
+
+def totals() -> Dict[str, int]:
+    """A copy of every counter's total in the process so far (name -> n);
+    a reader takes the difference of two."""
+    with _totals_lock:
+        return dict(_totals)
 
 
 @contextlib.contextmanager

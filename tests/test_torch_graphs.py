@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from srgan_tpu_torch.configs import PRESETS
-from srgan_tpu_torch.ops import norm
 from srgan_tpu_torch.training import gan, graphs
 from srgan_tpu_torch.training.gan import GANTrainer
 from srgan_tpu_torch.training.state import (
@@ -218,10 +217,10 @@ def test_replays_count_as_eager_steps(graphed):
     assert st.step == 4
 
 
-def test_segment_reemits_counts_not_launches(monkeypatch):
-    """Each replay of a segment counts what the captured code counted;
-    the kernels' module counters count the launchers' calls, so the
-    capture's and no replay's."""
+def test_replays_add_the_captures_counts_to_the_totals(monkeypatch):
+    """A capture keeps what its code counts, the kernels' launches
+    (``launch.*``) and ``norm.*`` alike, out of the totals and the
+    recording; each replay of the segment adds it to both."""
     class Capture(FakeGraph):
         def capture(self, fn):
             return fn()
@@ -230,22 +229,27 @@ def test_segment_reemits_counts_not_launches(monkeypatch):
             pass
 
     monkeypatch.setattr(graphs, "CudaGraph", Capture)
-    monkeypatch.setattr(norm, "LAUNCHES", 10)
+    names = ("launch.cbinorm_fwd", "norm.fwd")
 
     def code():
-        norm.LAUNCHES += 2
-        spans.count("norm.fwd", 3)
+        spans.count(names[0], 2)
+        spans.count(names[1], 3)
         return torch.zeros(())
 
+    def totals():
+        now = spans.totals()
+        return [now.get(n, 0) for n in names]
+
+    before = totals()
     with spans.recording() as rec:
         seg = graphs.Segment(code, None, torch.Generator())
-        assert norm.LAUNCHES == 12 and not rec.counters
+        assert totals() == before and not rec.counters
         with spans.span(spans.STEP):
             seg.replay()
             seg.replay()
-    assert norm.LAUNCHES == 12
-    assert sum(v for (n, _), v in rec.counters.items()
-               if n == "norm.fwd") == 6
+    assert [a - b for a, b in zip(totals(), before)] == [4, 6]
+    assert {n: v for (n, _), v in rec.counters.items()} == {
+        names[0]: 4, names[1]: 6}
 
 
 def test_graph_cache_lr_tensor_and_copied_metrics(graphed):

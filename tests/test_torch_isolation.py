@@ -124,9 +124,11 @@ def test_port_files_are_small_text():
 def test_cuda_wrapper_raises_here():
     from srgan_tpu_torch.ops import build, diversification, histogram, norm
     from srgan_tpu_torch.training.gan import resolve_device
+    from srgan_tpu_torch.utils import spans
 
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
+    before = spans.totals()
     x = torch.zeros(1, 2, 3, 3, device="meta")
     t = torch.zeros(1, 2, device="meta")
     g = torch.ones(2, device="meta")
@@ -143,10 +145,9 @@ def test_cuda_wrapper_raises_here():
     if not os.path.exists("/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc"):
             build.build()
-    assert norm.LAUNCHES == norm.BWD_LAUNCHES == 0
-    assert norm.NHWC_LAUNCHES == norm.NHWC_BWD_LAUNCHES == 0
-    assert histogram.LAUNCHES == histogram.BWD_LAUNCHES == 0
-    assert diversification.LAUNCHES == 0
+    launches = [{k: v for k, v in totals.items() if k.startswith("launch.")}
+                for totals in (before, spans.totals())]
+    assert launches[0] == launches[1]
 
 
 def test_resolve_device_turns_tf32_off_on_cuda(monkeypatch):

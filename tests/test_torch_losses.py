@@ -28,6 +28,7 @@ from srgan_tpu.ops.pallas.histogram import (
 from srgan_tpu_torch.configs import LossWeights
 from srgan_tpu_torch.ops import diversification, histogram
 from srgan_tpu_torch.ops import losses as L
+from srgan_tpu_torch.utils import spans
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 N, D = 32, 8
@@ -173,25 +174,30 @@ BAD_DIV_INPUTS = {
 }
 
 
+def _launches(totals):
+    """The kernels' launch counters among the ``spans.totals()``."""
+    return {k: v for k, v in totals.items() if k.startswith("launch.")}
+
+
 @pytest.mark.parametrize("case", sorted(BAD_DIV_INPUTS) + ["cpu_is_plain"])
 def test_fused_diversification_wrapper_contract(data, case):
     """The wrapper refuses what the kernel does not take, with ValueError,
     and on a CPU tensor returns the plain twin's bits without counting a
     launch."""
     mu, target = _t(data.mu), _t(data.target)
-    before = diversification.LAUNCHES
+    before = _launches(spans.totals())
     if case == "cpu_is_plain":
         want = diversification.diversification_plain(mu, target, 32)
         assert torch.equal(
             diversification.diversification_fwd(mu, target, 32), want)
         got = diversification.fused_diversification(mu, target, 32)
         assert torch.equal(got, want)
-        assert diversification.LAUNCHES == before
+        assert _launches(spans.totals()) == before
         return
     with pytest.raises(ValueError):
         diversification.diversification_fwd(
             *BAD_DIV_INPUTS[case](mu, target), 32)
-    assert diversification.LAUNCHES == before
+    assert _launches(spans.totals()) == before
 
 
 @pytest.mark.parametrize("Dm", [2, 3, 7, 8, 9, 20, 600])

@@ -13,11 +13,17 @@ import torch
 from srgan_tpu.nn.layers import instance_norm as jax_instance_norm
 from srgan_tpu.ops.pallas.norm import _fused_fwd
 from srgan_tpu_torch.ops import norm
+from srgan_tpu_torch.utils import spans
 
 ATOL = 1e-5
 B, C = 2, 8
 # H*W divisible by 16 (8x8) and not (5x5)
 SHAPES = [(8, 8), (5, 5)]
+
+
+def _launches(totals):
+    """The kernels' launch counters among the ``spans.totals()``."""
+    return {k: v for k, v in totals.items() if k.startswith("launch.")}
 
 
 def _inputs(hw):
@@ -116,6 +122,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         x = x[:, :, :, ::2]
     elif bad == "meta_device":
         x, t, g, b = (v.to("meta") for v in (x, t, g, b))
+    before = spans.totals()
     with pytest.raises((ValueError, TypeError)):
         norm.fused_cbinorm(x, t, g, b)
-    assert norm.LAUNCHES == 0
+    assert _launches(spans.totals()) == _launches(before)

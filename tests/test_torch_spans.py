@@ -7,6 +7,7 @@ import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 
 import contextlib
 import dataclasses
+import sys
 import threading
 import time
 
@@ -22,6 +23,8 @@ from srgan_tpu_torch.utils import spans
 TOY = dict(image_size=32, g_nch=8, g_res_num=1, d_nch=8, d_num_cls=3,
            e_nch=8, e_num_cls=2)
 B = 4
+# each thread's counts in the test of the totals
+THREAD_COUNTS = 20000
 
 
 def toy(preset: str):
@@ -107,6 +110,46 @@ def test_parents_steps_threads_and_counters():
         assert rec.counters[("norm.bwd", step.id)] == 2
     assert rec.counters[("norm.fwd", None)] == 1
     assert len({s.id for s in rec.spans}) == len(rec.spans)
+
+
+def test_totals_count_off_apart_from_a_tally_and_from_every_thread():
+    """The totals move with the recorder off, and with it on as its
+    counters do; a tally keeps its counts out of them; counts made on
+    other threads all arrive, with threads switched as often as the
+    interpreter allows."""
+    name = "test.totals"
+
+    def total():
+        return spans.totals().get(name, 0)
+
+    start = total()
+    spans.count(name, 2)
+    assert total() == start + 2
+    spans.totals()[name] = -1
+    assert total() == start + 2
+    with spans.tallied() as tally:
+        spans.count(name, 5)
+    assert tally == {name: 5} and total() == start + 2
+    with spans.recording() as rec:
+        spans.count(name)
+    assert rec.counters == {(name, None): 1} and total() == start + 3
+
+    def worker():
+        for _ in range(THREAD_COUNTS):
+            spans.count(name)
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert total() == start + 3 + 8 * THREAD_COUNTS
 
 
 def test_spans_share_the_profiler_clock():

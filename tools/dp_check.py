@@ -12,8 +12,8 @@ with CUDA events.  Rank 0 holds the first data-parallel step's metrics
 ``tests/test_torch_train.py``) to the single-process step's, and the
 ranks' parameters to each other (bit-equal).  Three cases: instance norm
 under ``grad_sync`` "auto" and "manual", batch norm under "auto" (its
-moments summed over the ranks).  Each rank's launches of the six
-training kernels are counted around its first step.  Rank 0 prints one
+moments summed over the ranks).  Each rank's launches of the training
+kernels are counted around its first step.  Rank 0 prints one
 JSON line per case and, last, one line with them all, the card's name and
 power limit.  ``--device cpu`` (gloo) with ``--small`` rehearses it on
 the CPU at 64 px, nch 8, batch 8, k 2.  Run from the repository root.
@@ -37,7 +37,6 @@ import torch.distributed as dist  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from srgan_tpu_torch.configs import PRESETS  # noqa: E402
-from srgan_tpu_torch.ops import histogram, norm  # noqa: E402
 from srgan_tpu_torch.parallel import make_mesh, shard_batch  # noqa: E402
 
 CASES = (("instance", "auto"), ("instance", "manual"), ("batch", "auto"))
@@ -76,14 +75,6 @@ class Clock:
         end.record()
         torch.cuda.synchronize()
         return out, start.elapsed_time(end)
-
-
-def launches():
-    return {"cbinorm_fwd": norm.LAUNCHES, "cbinorm_bwd": norm.BWD_LAUNCHES,
-            "cbinorm_fwd_nhwc": norm.NHWC_LAUNCHES,
-            "cbinorm_bwd_nhwc": norm.NHWC_BWD_LAUNCHES,
-            "soft_histogram_fwd": histogram.LAUNCHES,
-            "soft_histogram_bwd": histogram.BWD_LAUNCHES}
 
 
 def gather(values, mesh):
@@ -143,11 +134,11 @@ def run_case(norm_type, grad_sync, mesh, clock, small):
         times, counts = [], None
         for i in range(1 + STEPS):
             trainer.draws, trainer.draw_i = draws, 0
-            cs.reset_counts()
+            before = cs.counts_now()
             metrics, ms = clock.time(lambda: trainer.step(dstate, local))
             times.append(ms)
             if i == 0:
-                counts = launches()
+                counts = cs.counts_since(before)
                 dp = {key: float(v) for key, v in metrics.items()}
                 first = {net: {key: v.detach().cpu().clone() for key, v in
                                getattr(dstate, net).state_dict().items()}
@@ -170,8 +161,7 @@ def run_case(norm_type, grad_sync, mesh, clock, small):
         want = {key: 0 for key in want}      # no kernel runs on the CPU
     for row in table:
         got = dict(zip(counts, (int(c) for c in row[len(times) + 2:])))
-        cs.check(all(got[key] == want[key] for key in got),
-                 f"launches {got}, derived {want}")
+        cs.check(got == want, f"launches {got}, derived {want}")
     worst = max(abs(dp[key] - v) / max(abs(v), 1e-12)
                 for key, v in single.items())
     cs.check(set(dp) == set(single), (sorted(dp), sorted(single)))
